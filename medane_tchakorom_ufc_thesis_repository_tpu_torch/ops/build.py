@@ -1,0 +1,134 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The counterpart of the JAX package's ``ops/fused_pallas.mosaic_available``.
+Where that probe decided whether Mosaic kernels could run, here there is
+nothing to decide: a CUDA tensor always goes through its kernel, so the
+first launch builds the library or raises.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``)
+into its own shared library with a plain C interface, loaded with
+``ctypes``.  The libraries go to ``build/torch_kernels/`` beside the
+package (the checkout's root when run from a checkout); each file name
+carries a hash of its source and flags, so an edited source is rebuilt
+and a stale library is never loaded.  A build writes to a temporary name
+and renames it, so concurrent processes cannot load a half-written file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import logging
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+logger = logging.getLogger(__name__)
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# the double-float residual's error-free transforms need every add and
+# multiply rounded on its own: no FMA contraction in that file
+EXTRA_FLAGS = {"stencil3d": (), "df_residual": ("-fmad=false",)}
+
+_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+# (argtypes, restype) of every exported function, by library
+SIGNATURES = {
+    "stencil3d": {
+        "kernel_error_string": ([_I], ctypes.c_char_p),
+        "stencil3d_apply_partials": ([_I64, _I64, _I64], _I64),
+        "stencil3d_apply": (
+            [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _F, _F, _F,
+             _P], _I),
+        "stencil3d_residual_restrict": (
+            [_I, _P, _P, _P, _I64, _I64, _I64, _F, _F, _F, _P], _I),
+        "stencil3d_prolong_jacobi": (
+            [_I, _P, _P, _P, _P, _I64, _I64, _I64, _F, _F, _F, _P], _I),
+    },
+    "df_residual": {
+        "kernel_error_string": ([_I], ctypes.c_char_p),
+        "stencil3d_df_residual": (
+            [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _F, _F, _F, _I, _F,
+             _F, _F, _P], _I),
+    },
+}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on the
+    PATH, else ``/usr/local/cuda/bin/nvcc``."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH, /usr/local/cuda/bin);"
+        " the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is built: the name carries
+    a hash of the source bytes and the compiler flags."""
+    flags = NVCC_FLAGS + EXTRA_FLAGS[name]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _compile(name: str, out: Path) -> None:
+    nvcc = nvcc_path()
+    version = subprocess.run([nvcc, "--version"], capture_output=True,
+                             text=True, check=True).stdout.strip()
+    logger.info("building %s with %s (torch %s, CUDA %s)", out.name,
+                version.splitlines()[-1], torch.__version__, torch.version.cuda)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, *EXTRA_FLAGS[name], "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}) on {name}.cu:\n{proc.stderr}")
+    logger.info("%s", proc.stderr.strip())   # ptxas: registers, spills
+    os.replace(tmp, out)
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, built on first use."""
+    path = library_path(name)
+    if not path.exists():
+        _compile(name, path)
+    lib = ctypes.CDLL(str(path))
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = restype
+    return lib
+
+
+def load_all() -> None:
+    """Build (where needed) and load every kernel library."""
+    for name in SIGNATURES:
+        load(name)
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error."""
+    if rc:
+        msg = lib.kernel_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

@@ -1,0 +1,404 @@
+"""The 3D 7-point stencil kernels: wrappers, plain versions, launch counts.
+
+Counterpart of the 3D half of the JAX package's ``ops/stencil_pallas.py``.
+Four hand-written CUDA kernels (``csrc/stencil3d.cu``,
+``csrc/df_residual.cu``) serve five wrappers:
+
+* ``stencil3d_apply`` (kernel A): ``A x`` with the fused epilogues of
+  kinds ``mv``, ``mv_dot``, ``residual``, ``jacobi`` and ``jacobi_dot``;
+* ``stencil3d_mv_cast`` (kernel A, kind ``mv_cast``): ``(A x, x)`` both
+  written at a narrower type, the entry of a bf16 multigrid cycle;
+* ``stencil3d_residual_restrict`` (kernel B);
+* ``stencil3d_prolong_jacobi`` (kernel C);
+* ``stencil3d_df_residual`` (kernel D): double-float ``b - A x``.
+
+Each wrapper has a ``*_plain`` PyTorch version of the same function
+beside it.  A wrapper takes its plain version only for tensors on the
+CPU; for CUDA tensors it launches its kernel or raises.  Grids are
+contiguous ``(nx, ny, nz)`` tensors.  On the card storage is f32 or
+bf16 and the arithmetic is f32; the plain versions also take f64 and
+then compute in f64.  The taps are summed in one order everywhere:
+``diag*c + off*((((x- + x+) + y-) + y+) + (z- + z+))``.
+
+Every kernel launch adds one to its entry in ``launch_counts()``; plain
+calls count nothing.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import build
+
+KINDS = ("mv", "mv_dot", "residual", "jacobi", "jacobi_dot")
+_KIND_CODE = {"mv": 0, "mv_dot": 1, "residual": 2, "jacobi": 3,
+              "jacobi_dot": 4, "mv_cast": 5}
+_WITH_RHS = ("residual", "jacobi", "jacobi_dot")
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_CPU_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
+
+_launches: collections.Counter = collections.Counter()
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last reset, by wrapper (and kind)."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    _launches.clear()
+
+
+# ---------------------------------------------------------------------------
+# Checks shared by the wrappers
+# ---------------------------------------------------------------------------
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if x.device.type == "cuda":
+        if x.device.index != torch.cuda.current_device():
+            raise ValueError(
+                f"tensor on {x.device} but the current device is "
+                f"cuda:{torch.cuda.current_device()}")
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel and no plain path for tensors on {x.device}")
+
+
+def _check_grid(name: str, t: torch.Tensor, like: Optional[torch.Tensor] = None,
+                shape=None) -> None:
+    if t.dim() != 3 or min(t.shape) < 1:
+        raise ValueError(f"{name} must be a non-empty (nx, ny, nz) grid, "
+                         f"got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if like is not None:
+        if t.device != like.device:
+            raise ValueError(f"{name} is on {t.device}, expected {like.device}")
+        if t.dtype != like.dtype:
+            raise ValueError(f"{name} is {t.dtype}, expected {like.dtype}")
+
+
+def _check_dtype(dtype: torch.dtype, cuda: bool) -> None:
+    allowed = tuple(_DTYPE_CODE) if cuda else _CPU_DTYPES
+    if dtype not in allowed:
+        where = "the CUDA kernels" if cuda else "the plain versions"
+        raise ValueError(f"{where} take {allowed}, got {dtype}")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """f32 for f32/bf16 storage, f64 for f64 (plain versions only)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _apply(c: torch.Tensor, diag: float, off: float) -> torch.Tensor:
+    """``A c`` in ``c``'s dtype, zero Dirichlet boundary."""
+    p = F.pad(c, (1, 1, 1, 1, 1, 1))
+    taps = ((((p[:-2, 1:-1, 1:-1] + p[2:, 1:-1, 1:-1]) + p[1:-1, :-2, 1:-1])
+             + p[1:-1, 2:, 1:-1]) + (p[1:-1, 1:-1, :-2] + p[1:-1, 1:-1, 2:]))
+    return diag * c + off * taps
+
+
+def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.sum(a.to(torch.float32) * b.to(torch.float32))
+
+
+def cell_sums(r: torch.Tensor) -> torch.Tensor:
+    """Sum over each 2x2x2 cell of an even grid: x pairs, then y pairs,
+    then z pairs (the order kernel B adds in)."""
+    r = r[0::2] + r[1::2]
+    r = r[:, 0::2] + r[:, 1::2]
+    return r[:, :, 0::2] + r[:, :, 1::2]
+
+
+def replicate(e: torch.Tensor) -> torch.Tensor:
+    """Piecewise-constant prolongation: each coarse value fills its
+    2x2x2 cell of the fine grid."""
+    for ax in range(3):
+        e = e.repeat_interleave(2, dim=ax)
+    return e
+
+
+# ---------------------------------------------------------------------------
+# Kernel A: stencil3d_apply
+# ---------------------------------------------------------------------------
+
+def _check_apply(x, extras, kind, omega):
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    want = 1 if kind in _WITH_RHS else 0
+    if len(extras) != want:
+        raise ValueError(f"kind {kind!r} takes {want} extra operand(s), "
+                         f"got {len(extras)}")
+    if (omega is None) == kind.startswith("jacobi"):
+        raise ValueError(f"omega is required by the jacobi kinds and only "
+                         f"by them (kind {kind!r}, omega {omega!r})")
+    _check_grid("x", x)
+    for e in extras:
+        _check_grid("b", e, like=x, shape=x.shape)
+
+
+def stencil3d_apply_plain(x: torch.Tensor, *extras: torch.Tensor, kind: str,
+                          diag: float, off: float,
+                          omega: Optional[float] = None,
+                          out_dtype: Optional[torch.dtype] = None):
+    """Plain version of ``stencil3d_apply``: ``mv`` → ``A x``;
+    ``mv_dot`` → ``(A x, x·Ax)``; ``residual`` → ``b - A x``; ``jacobi``
+    → ``x + omega (b - A x)``; ``jacobi_dot`` → ``(x', b·x')``.  The dots
+    are f32 sums of f32 products taken before the cast to ``out_dtype``."""
+    _check_apply(x, extras, kind, omega)
+    odt = x.dtype if out_dtype is None else out_dtype
+    c = x.to(_compute_dtype(x.dtype))
+    v = _apply(c, diag, off)
+    dot = None
+    if kind == "residual":
+        v = extras[0].to(c.dtype) - v
+    elif kind in ("jacobi", "jacobi_dot"):
+        bb = extras[0].to(c.dtype)
+        v = c + omega * (bb - v)
+        if kind == "jacobi_dot":
+            dot = _dot_f32(bb, v)
+    elif kind == "mv_dot":
+        dot = _dot_f32(c, v)
+    y = v.to(odt)
+    return (y, dot) if dot is not None else y
+
+
+def stencil3d_apply(x: torch.Tensor, *extras: torch.Tensor, kind: str,
+                    diag: float, off: float, omega: Optional[float] = None,
+                    out_dtype: Optional[torch.dtype] = None):
+    """Kernel A (replaces ``stencil_pallas.stencil3d_apply_pallas``).
+    ``extras`` is ``(b,)`` for the residual and Jacobi kinds, of ``x``'s
+    dtype; ``out_dtype`` (default ``x.dtype``) may differ.  The dot kinds
+    return ``(y, dot)`` with ``dot`` a 0-d f32 tensor."""
+    _check_apply(x, extras, kind, omega)
+    odt = x.dtype if out_dtype is None else out_dtype
+    cuda = _on_cuda(x)
+    _check_dtype(x.dtype, cuda)
+    _check_dtype(odt, cuda)
+    if not cuda:
+        return stencil3d_apply_plain(x, *extras, kind=kind, diag=diag, off=off,
+                                     omega=omega, out_dtype=out_dtype)
+    nx, ny, nz = x.shape
+    lib = build.load("stencil3d")
+    y = torch.empty(x.shape, dtype=odt, device=x.device)
+    partials = dot = None
+    if kind.endswith("_dot"):
+        n = lib.stencil3d_apply_partials(nx, ny, nz)
+        partials = torch.empty(n, dtype=torch.float32, device=x.device)
+        dot = torch.empty((), dtype=torch.float32, device=x.device)
+    rc = lib.stencil3d_apply(
+        _KIND_CODE[kind], _DTYPE_CODE[x.dtype], _DTYPE_CODE[odt], x.data_ptr(),
+        extras[0].data_ptr() if extras else None, y.data_ptr(), None,
+        None if partials is None else partials.data_ptr(),
+        None if dot is None else dot.data_ptr(), nx, ny, nz, diag, off,
+        0.0 if omega is None else omega, _stream(x))
+    build.check(lib, rc, f"stencil3d_apply[{kind}]")
+    _launches[f"stencil3d_apply[{kind}]"] += 1
+    return (y, dot) if dot is not None else y
+
+
+# ---------------------------------------------------------------------------
+# Kernel A, kind mv_cast: stencil3d_mv_cast
+# ---------------------------------------------------------------------------
+
+def stencil3d_mv_cast_plain(x: torch.Tensor, *, diag: float, off: float,
+                            out_dtype: torch.dtype
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(A x, x)``, both rounded to ``out_dtype``."""
+    _check_grid("x", x)
+    y = _apply(x.to(_compute_dtype(x.dtype)), diag, off)
+    return y.to(out_dtype), x.to(out_dtype)
+
+
+def stencil3d_mv_cast(x: torch.Tensor, *, diag: float, off: float,
+                      out_dtype: torch.dtype
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel A, kind ``mv_cast`` (replaces
+    ``stencil_pallas.stencil3d_mv_cast_pallas``): one read of ``x``, two
+    writes at ``out_dtype``."""
+    _check_grid("x", x)
+    cuda = _on_cuda(x)
+    _check_dtype(x.dtype, cuda)
+    _check_dtype(out_dtype, cuda)
+    if not cuda:
+        return stencil3d_mv_cast_plain(x, diag=diag, off=off,
+                                       out_dtype=out_dtype)
+    nx, ny, nz = x.shape
+    lib = build.load("stencil3d")
+    y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    c = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    rc = lib.stencil3d_apply(
+        _KIND_CODE["mv_cast"], _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
+        x.data_ptr(), None, y.data_ptr(), c.data_ptr(), None, None, nx, ny, nz,
+        diag, off, 0.0, _stream(x))
+    build.check(lib, rc, "stencil3d_mv_cast")
+    _launches["stencil3d_mv_cast"] += 1
+    return y, c
+
+
+# ---------------------------------------------------------------------------
+# Kernel B: stencil3d_residual_restrict
+# ---------------------------------------------------------------------------
+
+def _check_even(x: torch.Tensor) -> None:
+    if any(n % 2 for n in x.shape):
+        raise ValueError(f"the grid must have even dims, got {tuple(x.shape)}")
+
+
+def stencil3d_residual_restrict_plain(x: torch.Tensor, b: torch.Tensor, *,
+                                      diag: float, off: float,
+                                      scale: float = 1.0) -> torch.Tensor:
+    """``(scale/8) * sum over each 2x2x2 cell of (b - A x)`` on the
+    ``(nx/2, ny/2, nz/2)`` grid, in ``x``'s dtype: sums over x pairs,
+    then y pairs, then z pairs, rounded once."""
+    _check_grid("x", x)
+    _check_grid("b", b, like=x, shape=x.shape)
+    _check_even(x)
+    cdt = _compute_dtype(x.dtype)
+    r = b.to(cdt) - _apply(x.to(cdt), diag, off)
+    return ((scale / 8.0) * cell_sums(r)).to(x.dtype)
+
+
+def stencil3d_residual_restrict(x: torch.Tensor, b: torch.Tensor, *,
+                                diag: float, off: float,
+                                scale: float = 1.0) -> torch.Tensor:
+    """Kernel B (replaces
+    ``stencil_pallas.stencil3d_residual_restrict_pallas``)."""
+    _check_grid("x", x)
+    _check_grid("b", b, like=x, shape=x.shape)
+    _check_even(x)
+    cuda = _on_cuda(x)
+    _check_dtype(x.dtype, cuda)
+    if not cuda:
+        return stencil3d_residual_restrict_plain(x, b, diag=diag, off=off,
+                                                 scale=scale)
+    nx, ny, nz = x.shape
+    lib = build.load("stencil3d")
+    rc_ = torch.empty((nx // 2, ny // 2, nz // 2), dtype=x.dtype,
+                      device=x.device)
+    rc = lib.stencil3d_residual_restrict(
+        _DTYPE_CODE[x.dtype], x.data_ptr(), b.data_ptr(), rc_.data_ptr(), nx,
+        ny, nz, diag, off, scale / 8.0, _stream(x))
+    build.check(lib, rc, "stencil3d_residual_restrict")
+    _launches["stencil3d_residual_restrict"] += 1
+    return rc_
+
+
+# ---------------------------------------------------------------------------
+# Kernel C: stencil3d_prolong_jacobi
+# ---------------------------------------------------------------------------
+
+def _check_prolong(x, b, e):
+    _check_grid("x", x)
+    _check_grid("b", b, like=x, shape=x.shape)
+    _check_even(x)
+    _check_grid("e", e, like=x, shape=tuple(n // 2 for n in x.shape))
+
+
+def stencil3d_prolong_jacobi_plain(x: torch.Tensor, b: torch.Tensor,
+                                   e: torch.Tensor, *, diag: float,
+                                   off: float, omega: float) -> torch.Tensor:
+    """``m + omega (b - A m)`` with ``m = x + P e`` (``P`` piecewise
+    constant from the coarse ``e``); ``m`` stays in the compute dtype."""
+    _check_prolong(x, b, e)
+    cdt = _compute_dtype(x.dtype)
+    m = x.to(cdt) + replicate(e.to(cdt))
+    out = m + omega * (b.to(cdt) - _apply(m, diag, off))
+    return out.to(x.dtype)
+
+
+def stencil3d_prolong_jacobi(x: torch.Tensor, b: torch.Tensor,
+                             e: torch.Tensor, *, diag: float, off: float,
+                             omega: float) -> torch.Tensor:
+    """Kernel C (replaces
+    ``stencil_pallas.stencil3d_prolong_jacobi_pallas``).  ``e`` is the
+    coarse ``(nx/2, ny/2, nz/2)`` correction in ``x``'s dtype."""
+    _check_prolong(x, b, e)
+    cuda = _on_cuda(x)
+    _check_dtype(x.dtype, cuda)
+    if not cuda:
+        return stencil3d_prolong_jacobi_plain(x, b, e, diag=diag, off=off,
+                                              omega=omega)
+    nx, ny, nz = x.shape
+    lib = build.load("stencil3d")
+    out = torch.empty_like(x)
+    rc = lib.stencil3d_prolong_jacobi(
+        _DTYPE_CODE[x.dtype], x.data_ptr(), b.data_ptr(), e.data_ptr(),
+        out.data_ptr(), nx, ny, nz, diag, off, omega, _stream(x))
+    build.check(lib, rc, "stencil3d_prolong_jacobi")
+    _launches["stencil3d_prolong_jacobi"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel D: stencil3d_df_residual
+# ---------------------------------------------------------------------------
+
+def _check_df(xhi, xlo, bhi, blo):
+    _check_grid("xhi", xhi)
+    if xhi.dtype != torch.float32:
+        raise ValueError(f"the df residual takes f32 components, got {xhi.dtype}")
+    for name, t in (("xlo", xlo), ("bhi", bhi), ("blo", blo)):
+        _check_grid(name, t, like=xhi, shape=xhi.shape)
+
+
+def stencil3d_df_residual_plain(xhi, xlo, bhi, blo, *, diag: float,
+                                off: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Double-float ``b - A x``: ``df64._df_residual_core_3d`` on the
+    zero-padded ``x`` components."""
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers import df64
+
+    _check_df(xhi, xlo, bhi, blo)
+    pad = (1, 1, 1, 1, 1, 1)
+    return df64._df_residual_core_3d(F.pad(xhi, pad), F.pad(xlo, pad), bhi,
+                                     blo, diag, off)
+
+
+def _coeff_mode(c: float, allow_scale: bool) -> Tuple[int, float, float, float]:
+    """How kernel D multiplies by ``c`` (``df64._int_coeff_mul`` /
+    ``df64._df_combine``): (mode, p0, p1, c), mode 0 one power of two,
+    1 two, 2 Dekker product, 3 exact scaling."""
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers import df64
+
+    if allow_scale and abs(c) in df64._EXACT_SCALES:
+        return 3, 0.0, 0.0, c
+    parts = df64._int_coeff_parts(c)
+    if parts is None:
+        return 2, 0.0, 0.0, c
+    if len(parts) == 1:
+        return 0, parts[0], 0.0, c
+    return 1, parts[0], parts[1], c
+
+
+def stencil3d_df_residual(xhi, xlo, bhi, blo, *, diag: float,
+                          off: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel D (replaces ``stencil_pallas.stencil3d_df_residual_pallas``):
+    ``(rhi, rlo)``, bit for bit the plain version."""
+    _check_df(xhi, xlo, bhi, blo)
+    if not _on_cuda(xhi):
+        return stencil3d_df_residual_plain(xhi, xlo, bhi, blo, diag=diag,
+                                           off=off)
+    nx, ny, nz = xhi.shape
+    lib = build.load("df_residual")
+    rhi = torch.empty_like(xhi)
+    rlo = torch.empty_like(xhi)
+    rc = lib.stencil3d_df_residual(
+        xhi.data_ptr(), xlo.data_ptr(), bhi.data_ptr(), blo.data_ptr(),
+        rhi.data_ptr(), rlo.data_ptr(), nx, ny, nz,
+        *_coeff_mode(diag, False), *_coeff_mode(off, True), _stream(xhi))
+    build.check(lib, rc, "stencil3d_df_residual")
+    _launches["stencil3d_df_residual"] += 1
+    return rhi, rlo
