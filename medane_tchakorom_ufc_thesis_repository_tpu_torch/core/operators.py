@@ -1,15 +1,16 @@
-"""The matrix-free 3D 7-point Poisson operator.
+"""The matrix-free 2D 5-point and 3D 7-point Poisson operators.
 
-Port of the JAX package's ``core/operators.Stencil3D`` with the methods
-the solvers call, under the same names so that ``solvers/multigrid.py``
-and ``solvers/krylov.py`` port line for line.  Every method goes through
-one kernel of ``ops/stencil3d.py``, at every size and shape: there is no
-size cutoff or alignment gate to fall back from on the card.  On the CPU
-the kernels' plain versions run instead.
+Port of the JAX package's ``core/operators.Stencil2D`` and ``Stencil3D``
+with the methods the solvers call, under the same names so that
+``solvers/multigrid.py`` and ``solvers/krylov.py`` port line for line.
+Every method goes through one kernel of ``ops/stencil2d.py`` or
+``ops/stencil3d.py``, at every size and shape: there is no size cutoff or
+alignment gate to fall back from on the card.  On the CPU the kernels'
+plain versions run instead.
 
-Methods are shape-polymorphic: they take the flat ``(nx*ny*nz,)`` vector
-or the ``(nx, ny, nz)`` grid and return the same shape.  Unknown order is
-``x[ix, iy, iz]`` flattened C-style.
+Methods are shape-polymorphic: they take the flat vector or the grid
+(``(m, n)``, ``(nx, ny, nz)``) and return the same shape.  Unknown order
+is the grid flattened C-style.
 """
 
 from __future__ import annotations
@@ -20,6 +21,45 @@ from typing import Optional, Tuple
 import torch
 
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import stencil3d as k
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops.stencil2d import (
+    stencil2d_apply,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Stencil2D:
+    """Matrix-free 2D 5-point Poisson operator on an ``m x n`` grid (diag 4,
+    off -1, Dirichlet): the rows of the reference's ``poisson2DMatrix``."""
+
+    m: int
+    n: int
+    diag: float = 4.0
+    off: float = -1.0
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.m * self.n, self.m * self.n)
+
+    @property
+    def nnz(self) -> int:
+        return 5 * self.m * self.n - 2 * self.m - 2 * self.n
+
+    def mv(self, x: torch.Tensor) -> torch.Tensor:
+        """``A x`` (kernel E with batch 1)."""
+        y = stencil2d_apply(x.reshape(1, self.m, self.n), diag=self.diag,
+                            off=self.off)
+        return y.reshape(x.shape)
+
+    rmv = mv  # symmetric
+
+    def to_dense(self, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        from medane_tchakorom_ufc_thesis_repository_tpu_torch.core.poisson import (
+            poisson2d_dense_np,
+        )
+
+        return torch.as_tensor(
+            poisson2d_dense_np(self.m, self.n, self.diag, self.off),
+            dtype=torch.get_default_dtype() if dtype is None else dtype)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,6 +16,8 @@ and renames it, so concurrent processes cannot load a half-written file.
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -35,10 +37,14 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # the double-float residual's error-free transforms need every add and
-# multiply rounded on its own: no FMA contraction in that file
-EXTRA_FLAGS = {"stencil3d": (), "df_residual": ("-fmad=false",)}
+# multiply rounded on its own: no FMA contraction in that file; the 2D
+# apply is rounded op by op, as its plain version is, and agrees with it
+# bit for bit
+EXTRA_FLAGS = {"stencil3d": (), "df_residual": ("-fmad=false",),
+               "stencil2d": ("-fmad=false",), "mdot": ()}
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_D = ctypes.c_double
 # (argtypes, restype) of every exported function, by library
 SIGNATURES = {
     "stencil3d": {
@@ -57,6 +63,16 @@ SIGNATURES = {
         "stencil3d_df_residual": (
             [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _F, _F, _F, _I, _F,
              _F, _F, _P], _I),
+    },
+    "stencil2d": {
+        "kernel_error_string": ([_I], ctypes.c_char_p),
+        "stencil2d_apply": ([_I, _P, _P, _I64, _I64, _I64, _D, _D, _P], _I),
+    },
+    "mdot": {
+        "kernel_error_string": ([_I], ctypes.c_char_p),
+        "mdot_partials_count": ([_I64, _I64, _I64], _I64),
+        "mdot": ([_I, _I, _P, _P, _P, _P] + [_I64] * 6 + [_P], _I),
+        "maxpy": ([_I, _I, _P, _P, _P, _P] + [_I64] * 6 + [_P], _I),
     },
 }
 
@@ -122,9 +138,47 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def load_all() -> None:
-    """Build (where needed) and load every kernel library."""
+    """Build every missing kernel library, one ``nvcc`` per source, all
+    started together, then load them all."""
+    missing = [n for n in SIGNATURES if not library_path(n).exists()]
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(missing))) as pool:
+        for f in [pool.submit(_compile, n, library_path(n)) for n in missing]:
+            f.result()
     for name in SIGNATURES:
         load(name)
+
+
+def on_cuda(x: torch.Tensor) -> bool:
+    """True for a tensor on the current CUDA device, False for a CPU
+    tensor; raises for any other device."""
+    if x.device.type == "cuda":
+        if x.device.index != torch.cuda.current_device():
+            raise ValueError(
+                f"tensor on {x.device} but the current device is "
+                f"cuda:{torch.cuda.current_device()}")
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel and no plain path for tensors on {x.device}")
+
+
+def stream(x: torch.Tensor) -> int:
+    """The handle of the current stream on ``x``'s device."""
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# Launches of every kernel wrapper of the port, by wrapper (and kind):
+# each adds one where it launches its kernel; plain calls count nothing.
+launches: collections.Counter = collections.Counter()
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last reset, by wrapper (and kind)."""
+    return dict(launches)
+
+
+def reset_launch_counts() -> None:
+    launches.clear()
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

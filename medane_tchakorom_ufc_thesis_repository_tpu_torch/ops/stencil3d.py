@@ -20,13 +20,13 @@ bf16 and the arithmetic is f32; the plain versions also take f64 and
 then compute in f64.  The taps are summed in one order everywhere:
 ``diag*c + off*((((x- + x+) + y-) + y+) + (z- + z+))``.
 
-Every kernel launch adds one to its entry in ``launch_counts()``; plain
-calls count nothing.
+Every kernel launch adds one to its entry in ``launch_counts()`` (the
+port's counts of all wrappers, kept in ``ops/build.py``); plain calls
+count nothing.
 """
 
 from __future__ import annotations
 
-import collections
 from typing import Optional, Tuple
 
 import torch
@@ -41,34 +41,14 @@ _WITH_RHS = ("residual", "jacobi", "jacobi_dot")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _CPU_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 
-_launches: collections.Counter = collections.Counter()
-
-
-def launch_counts() -> dict:
-    """Kernel launches since the last reset, by wrapper (and kind)."""
-    return dict(_launches)
-
-
-def reset_launch_counts() -> None:
-    _launches.clear()
+# the port's launch counts, shared by every wrapper (``ops/build.py``)
+launch_counts = build.launch_counts
+reset_launch_counts = build.reset_launch_counts
 
 
 # ---------------------------------------------------------------------------
 # Checks shared by the wrappers
 # ---------------------------------------------------------------------------
-
-def _on_cuda(x: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if x.device.type == "cuda":
-        if x.device.index != torch.cuda.current_device():
-            raise ValueError(
-                f"tensor on {x.device} but the current device is "
-                f"cuda:{torch.cuda.current_device()}")
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"no kernel and no plain path for tensors on {x.device}")
-
 
 def _check_grid(name: str, t: torch.Tensor, like: Optional[torch.Tensor] = None,
                 shape=None) -> None:
@@ -92,10 +72,6 @@ def _check_dtype(dtype: torch.dtype, cuda: bool) -> None:
     if dtype not in allowed:
         where = "the CUDA kernels" if cuda else "the plain versions"
         raise ValueError(f"{where} take {allowed}, got {dtype}")
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -185,7 +161,7 @@ def stencil3d_apply(x: torch.Tensor, *extras: torch.Tensor, kind: str,
     return ``(y, dot)`` with ``dot`` a 0-d f32 tensor."""
     _check_apply(x, extras, kind, omega)
     odt = x.dtype if out_dtype is None else out_dtype
-    cuda = _on_cuda(x)
+    cuda = build.on_cuda(x)
     _check_dtype(x.dtype, cuda)
     _check_dtype(odt, cuda)
     if not cuda:
@@ -204,9 +180,9 @@ def stencil3d_apply(x: torch.Tensor, *extras: torch.Tensor, kind: str,
         extras[0].data_ptr() if extras else None, y.data_ptr(), None,
         None if partials is None else partials.data_ptr(),
         None if dot is None else dot.data_ptr(), nx, ny, nz, diag, off,
-        0.0 if omega is None else omega, _stream(x))
+        0.0 if omega is None else omega, build.stream(x))
     build.check(lib, rc, f"stencil3d_apply[{kind}]")
-    _launches[f"stencil3d_apply[{kind}]"] += 1
+    build.launches[f"stencil3d_apply[{kind}]"] += 1
     return (y, dot) if dot is not None else y
 
 
@@ -230,7 +206,7 @@ def stencil3d_mv_cast(x: torch.Tensor, *, diag: float, off: float,
     ``stencil_pallas.stencil3d_mv_cast_pallas``): one read of ``x``, two
     writes at ``out_dtype``."""
     _check_grid("x", x)
-    cuda = _on_cuda(x)
+    cuda = build.on_cuda(x)
     _check_dtype(x.dtype, cuda)
     _check_dtype(out_dtype, cuda)
     if not cuda:
@@ -243,9 +219,9 @@ def stencil3d_mv_cast(x: torch.Tensor, *, diag: float, off: float,
     rc = lib.stencil3d_apply(
         _KIND_CODE["mv_cast"], _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
         x.data_ptr(), None, y.data_ptr(), c.data_ptr(), None, None, nx, ny, nz,
-        diag, off, 0.0, _stream(x))
+        diag, off, 0.0, build.stream(x))
     build.check(lib, rc, "stencil3d_mv_cast")
-    _launches["stencil3d_mv_cast"] += 1
+    build.launches["stencil3d_mv_cast"] += 1
     return y, c
 
 
@@ -280,7 +256,7 @@ def stencil3d_residual_restrict(x: torch.Tensor, b: torch.Tensor, *,
     _check_grid("x", x)
     _check_grid("b", b, like=x, shape=x.shape)
     _check_even(x)
-    cuda = _on_cuda(x)
+    cuda = build.on_cuda(x)
     _check_dtype(x.dtype, cuda)
     if not cuda:
         return stencil3d_residual_restrict_plain(x, b, diag=diag, off=off,
@@ -291,9 +267,9 @@ def stencil3d_residual_restrict(x: torch.Tensor, b: torch.Tensor, *,
                       device=x.device)
     rc = lib.stencil3d_residual_restrict(
         _DTYPE_CODE[x.dtype], x.data_ptr(), b.data_ptr(), rc_.data_ptr(), nx,
-        ny, nz, diag, off, scale / 8.0, _stream(x))
+        ny, nz, diag, off, scale / 8.0, build.stream(x))
     build.check(lib, rc, "stencil3d_residual_restrict")
-    _launches["stencil3d_residual_restrict"] += 1
+    build.launches["stencil3d_residual_restrict"] += 1
     return rc_
 
 
@@ -327,7 +303,7 @@ def stencil3d_prolong_jacobi(x: torch.Tensor, b: torch.Tensor,
     ``stencil_pallas.stencil3d_prolong_jacobi_pallas``).  ``e`` is the
     coarse ``(nx/2, ny/2, nz/2)`` correction in ``x``'s dtype."""
     _check_prolong(x, b, e)
-    cuda = _on_cuda(x)
+    cuda = build.on_cuda(x)
     _check_dtype(x.dtype, cuda)
     if not cuda:
         return stencil3d_prolong_jacobi_plain(x, b, e, diag=diag, off=off,
@@ -337,9 +313,9 @@ def stencil3d_prolong_jacobi(x: torch.Tensor, b: torch.Tensor,
     out = torch.empty_like(x)
     rc = lib.stencil3d_prolong_jacobi(
         _DTYPE_CODE[x.dtype], x.data_ptr(), b.data_ptr(), e.data_ptr(),
-        out.data_ptr(), nx, ny, nz, diag, off, omega, _stream(x))
+        out.data_ptr(), nx, ny, nz, diag, off, omega, build.stream(x))
     build.check(lib, rc, "stencil3d_prolong_jacobi")
-    _launches["stencil3d_prolong_jacobi"] += 1
+    build.launches["stencil3d_prolong_jacobi"] += 1
     return out
 
 
@@ -388,7 +364,7 @@ def stencil3d_df_residual(xhi, xlo, bhi, blo, *, diag: float,
     """Kernel D (replaces ``stencil_pallas.stencil3d_df_residual_pallas``):
     ``(rhi, rlo)``, bit for bit the plain version."""
     _check_df(xhi, xlo, bhi, blo)
-    if not _on_cuda(xhi):
+    if not build.on_cuda(xhi):
         return stencil3d_df_residual_plain(xhi, xlo, bhi, blo, diag=diag,
                                            off=off)
     nx, ny, nz = xhi.shape
@@ -398,7 +374,7 @@ def stencil3d_df_residual(xhi, xlo, bhi, blo, *, diag: float,
     rc = lib.stencil3d_df_residual(
         xhi.data_ptr(), xlo.data_ptr(), bhi.data_ptr(), blo.data_ptr(),
         rhi.data_ptr(), rlo.data_ptr(), nx, ny, nz,
-        *_coeff_mode(diag, False), *_coeff_mode(off, True), _stream(xhi))
+        *_coeff_mode(diag, False), *_coeff_mode(off, True), build.stream(xhi))
     build.check(lib, rc, "stencil3d_df_residual")
-    _launches["stencil3d_df_residual"] += 1
+    build.launches["stencil3d_df_residual"] += 1
     return rhi, rlo

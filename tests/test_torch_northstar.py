@@ -111,8 +111,10 @@ class TestConvert:
         top = convert.from_jax_operator(jop)
         assert (top.nx, top.ny, top.nz, top.diag, top.off) == (
             8, 4, 6, 6.0, -1.0)
-        with pytest.raises(TypeError):
-            convert.from_jax_operator(jpoisson.poisson2d(4, 4))
+        top2 = convert.from_jax_operator(jpoisson.poisson2d(4, 5))
+        assert (type(top2).__name__, top2.m, top2.n) == ("Stencil2D", 4, 5)
+        with pytest.raises(TypeError):   # the strip operators are not ported
+            convert.from_jax_operator(jpoisson.strip2d(4, 4))
 
     def test_arrays(self):
         a = np.random.default_rng(1).standard_normal((3, 4, 5)).astype(np.float32)
@@ -148,8 +150,14 @@ class TestBoundary:
                 assert top != "medane_tchakorom_ufc_thesis_repository_tpu", (f, mod)
 
     def test_exports(self):
-        assert set(port.__all__) == {"poisson3d", "Stencil3D", "cg",
-                                     "mg_preconditioner", "df_northstar_fused"}
+        assert set(port.__all__) == {
+            "poisson3d", "Stencil3D", "cg", "mg_preconditioner",
+            "df_northstar_fused",
+            # slice 2
+            "poisson2d", "Stencil2D", "gmres", "chebyshev", "StackedStencil2D",
+            "StackedStencil3D", "block_poisson2d", "block_poisson3d",
+            "rhs_ones", "final_residual_norm", "InnerConfig", "OuterConfig",
+            "MultisplitResult", "multisplit_solve", "sm", "am", "smsm", "amam"}
 
     def test_chip_smoke_refuses_without_a_card(self, tmp_path):
         assert not torch.cuda.is_available()
