@@ -1,7 +1,8 @@
 """Carry state across from the JAX package.
 
-The solvers have no weights: an operator's shape and coefficients, the
-right-hand side (a double-float pair for the north-star, a stacked
+The solvers have no weights: an operator (its shape and coefficients, or
+the arrays of an assembled format), a preconditioner's block inverses,
+the right-hand side (a double-float pair for the north-star, a stacked
 ``(nblocks, block_size)`` array for multisplitting), a start and a
 result are the whole state.  These helpers take them from the JAX
 package's objects or from numpy arrays, and give a multisplitting result
@@ -17,7 +18,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.core.device import resolve
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.core.operators import (
+    AIJ,
+    BSR,
+    DIA,
+    ELL,
+    DenseOp,
     Stencil2D,
     Stencil3D,
 )
@@ -27,6 +34,12 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.blockops import (
 )
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.multisplitting import (
     MultisplitResult,
+)
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.bjacobi import (
+    BlockJacobi,
+)
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.krylov import (
+    KrylovResult,
 )
 
 # the port's operators, by the JAX class name, with the fields they take
@@ -42,23 +55,88 @@ _RESULT_ARRAYS = ("x", "inner_iters", "rnorm", "rnorm0", "local_rnorms",
 _RESULT_FLAGS = ("converged", "certified")
 
 
-def from_jax_operator(op):
-    """The port's operator with the class, shape and coefficients of the
-    JAX package's ``op`` (``Stencil2D``, ``Stencil3D``,
-    ``StackedStencil2D`` or ``StackedStencil3D``)."""
+# the assembled formats: (class, array fields, plain fields)
+_ASSEMBLED = {
+    "DenseOp": (DenseOp, ("a",), ()),
+    "ELL": (ELL, ("indices", "values"), ("ncols",)),
+    "DIA": (DIA, ("data",), ("offsets",)),
+    "BSR": (BSR, ("indices", "values", "indices_t", "values_t"),
+            ("nrows", "ncols")),
+}
+
+
+def from_jax_operator(op, device=None):
+    """The port's operator with the class, shape and values of the JAX
+    package's ``op``: a matrix-free stencil (``Stencil2D``, ``Stencil3D``,
+    ``StackedStencil2D``, ``StackedStencil3D``) or an assembled format
+    (``DenseOp``, ``ELL``, ``DIA``, ``BSR``), whose arrays land on
+    ``device`` (None: the current CUDA device).  A BSR operator that
+    shares its transpose pack keeps sharing it.  The JAX ``AIJ`` keeps
+    only its routed plan: build the port's from the COO triplets with
+    ``aij_from_coo``."""
     name = type(op).__name__
+    if name in _ASSEMBLED:
+        cls, arrays, plain = _ASSEMBLED[name]
+        seen = {}
+        kw = {}
+        for f in arrays:
+            a = getattr(op, f)
+            if id(a) not in seen:
+                seen[id(a)] = tensor_from_numpy(np.asarray(a), device)
+            kw[f] = seen[id(a)]
+        for f in plain:
+            v = getattr(op, f)
+            kw[f] = tuple(int(o) for o in v) if f == "offsets" else int(v)
+        return cls(**kw)
     if name not in _OPERATORS:
-        raise TypeError(f"{name} is not ported; ported: {tuple(_OPERATORS)}")
+        raise TypeError(f"{name} is not ported; ported: "
+                        f"{tuple(_OPERATORS) + tuple(_ASSEMBLED)}")
     cls, dims = _OPERATORS[name]
     return cls(*(int(getattr(op, d)) for d in dims), diag=float(op.diag),
                off=float(op.off))
 
 
+def aij_from_coo(rows, cols, vals, shape, dtype: torch.dtype = torch.float32,
+                 with_rmv: bool = True, device=None) -> AIJ:
+    """The port's ``AIJ`` from the COO triplets that the JAX package's
+    ``AIJ.from_coo`` was given."""
+    return AIJ.from_coo(np.asarray(rows), np.asarray(cols), np.asarray(vals),
+                        shape, dtype=dtype, with_rmv=with_rmv, device=device)
+
+
+def block_jacobi_from_jax(pc, device=None) -> BlockJacobi:
+    """The port's ``BlockJacobi`` with the JAX one's block inverses."""
+    return BlockJacobi(
+        inv_blocks=tensor_from_numpy(np.asarray(pc.inv_blocks), device),
+        n=int(pc.n))
+
+
+_KRYLOV_FIELDS = ("x", "iters", "resnorm", "resnorm0", "converged")
+
+
+def krylov_result_from_numpy(fields: dict, device=None) -> KrylovResult:
+    """The port's ``KrylovResult`` from a mapping of the JAX
+    ``KrylovResult``'s fields as numpy values (``syncs``, which JAX does
+    not count, is 0)."""
+    return KrylovResult(**{f: tensor_from_numpy(fields[f], device)
+                           for f in _KRYLOV_FIELDS})
+
+
+def krylov_result_to_numpy(res: KrylovResult) -> dict:
+    """Every field of the port's ``KrylovResult``, tensors as numpy."""
+    return {f.name: (getattr(res, f.name).cpu().numpy()
+                     if isinstance(getattr(res, f.name), torch.Tensor)
+                     else getattr(res, f.name))
+            for f in dataclasses.fields(res)}
+
+
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
-    """A contiguous tensor on ``device`` holding ``a``'s values and dtype
+    """A contiguous tensor on ``device`` (None: the current CUDA device)
+    holding ``a``'s values and dtype
     (bf16 arrays, which numpy knows only through ``ml_dtypes``, arrive
     exactly through f32)."""
     a = np.asarray(a)
+    device = resolve(device)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(
             device=device, dtype=torch.bfloat16)

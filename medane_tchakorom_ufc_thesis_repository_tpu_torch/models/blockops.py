@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.core.device import resolve
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops.stencil2d import (
     stencil2d_apply,
 )
@@ -235,10 +236,11 @@ def block_poisson3d(nx: int, ny: int, nz: int,
 def rhs_ones(op: BlockOperator, dtype: Optional[torch.dtype] = None,
              device=None) -> torch.Tensor:
     """Stacked ``b = A 1`` (exact solution u = 1), the analog of
-    ``computeTheRightHandSideWithInitialGuess`` (``utils.c:623-650``)."""
+    ``computeTheRightHandSideWithInitialGuess`` (``utils.c:623-650``), on
+    ``device`` (None: the current CUDA device)."""
     ones = torch.ones((op.nblocks, op.block_size),
                       dtype=op.dtype if dtype is None else dtype,
-                      device=device)
+                      device=resolve(device))
     return op.full_mv(ones)
 
 

@@ -41,7 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # apply is rounded op by op, as its plain version is, and agrees with it
 # bit for bit
 EXTRA_FLAGS = {"stencil3d": (), "df_residual": ("-fmad=false",),
-               "stencil2d": ("-fmad=false",), "mdot": ()}
+               "stencil2d": ("-fmad=false",), "mdot": (), "csr_mv": (),
+               "bsr_mv": ()}
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _D = ctypes.c_double
@@ -73,6 +74,15 @@ SIGNATURES = {
         "mdot_partials_count": ([_I64, _I64, _I64], _I64),
         "mdot": ([_I, _I, _P, _P, _P, _P] + [_I64] * 6 + [_P], _I),
         "maxpy": ([_I, _I, _P, _P, _P, _P] + [_I64] * 6 + [_P], _I),
+    },
+    "csr_mv": {
+        "kernel_error_string": ([_I], ctypes.c_char_p),
+        "csr_mv": ([_I, _I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P], _I),
+    },
+    "bsr_mv": {
+        "kernel_error_string": ([_I], ctypes.c_char_p),
+        "bsr_mv": ([_I, _P, _P, _P, _P, _I64, _I64, _I, _I64, _I64, _I64, _P],
+                   _I),
     },
 }
 

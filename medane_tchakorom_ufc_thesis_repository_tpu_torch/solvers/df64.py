@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.core.device import resolve
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import stencil3d
 
 DF = Tuple[torch.Tensor, torch.Tensor]  # (hi, lo), value = hi + lo
@@ -46,8 +47,10 @@ def two_sum(a, b) -> DF:
 
 
 def df_from_f64(x64, device=None) -> DF:
-    """Split an f64 array into an (hi, lo) f32 pair on ``device``:
-    hi = round(x), lo = round(x - hi), done in numpy."""
+    """Split an f64 array into an (hi, lo) f32 pair on ``device`` (None:
+    the current CUDA device): hi = round(x), lo = round(x - hi), done in
+    numpy."""
+    device = resolve(device)
     x64 = np.asarray(x64, np.float64)
     hi = x64.astype(np.float32)
     lo = (x64 - hi.astype(np.float64)).astype(np.float32)

@@ -1,12 +1,13 @@
 """Krylov solvers (port of the JAX package's ``solvers/krylov.py``):
-conjugate gradients in its single-device order, and restarted GMRES(m)
-over a batch of independent systems.
+conjugate gradients in its single-device order, BiCGStab, MINRES, and
+restarted GMRES(m), each over one system or a batch of independent
+systems.
 
 JAX runs each iteration as a ``lax.while_loop``.  Here it is a Python
 loop: the loop's test is computed on the device, in the solve's dtype,
-exactly as JAX computes it, and read on the host (CG once per iteration,
-GMRES once per restart cycle).  ``KrylovResult.syncs`` counts those
-reads.
+exactly as JAX computes it, and read on the host (CG, BiCGStab and MINRES
+once per iteration, GMRES once per restart cycle).
+``KrylovResult.syncs`` counts those reads.
 """
 
 from __future__ import annotations
@@ -39,21 +40,71 @@ def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
+def _rowdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.sum(a * b, dim=-1)
+
+
+def _batch_ops(batched: bool):
+    """``(dot, col, commit)`` of a solve over one system or a batch.  One
+    system: ``b`` of any shape, scalars 0-dim.  A batch: ``b`` is
+    ``(k, n)``, every scalar of the recurrence is ``(k,)``, ``col`` makes
+    one broadcast against the vectors, and ``commit(live, new, old)``
+    keeps the old state of the systems whose loop test has failed (what
+    ``jax.vmap`` of a ``while_loop`` does)."""
+    if not batched:
+        return _vdot, (lambda s: s), (lambda live, new, old: new)
+
+    def commit(live, new, old):
+        return torch.where(live if new.dim() == 1 else live[:, None], new, old)
+
+    return _rowdot, (lambda s: s[:, None]), commit
+
+
+def _ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """``num / den`` where ``den`` is nonzero, else 0."""
+    nz = den != 0
+    return torch.where(nz, num / torch.where(nz, den, 1.0), 0.0)
+
+
+def _start(matvec, b, x0, rnorm0, rtol, atol, dot):
+    """``(x, r, rs, rnorm0, tol)`` at entry: ``x0 = None`` is the zero
+    guess, whose residual is ``b`` exactly (no matvec)."""
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b if x0 is None else b - matvec(x0)
+    rs = dot(r, r)
+    rn0 = torch.sqrt(rs) if rnorm0 is None else torch.as_tensor(
+        rnorm0, dtype=b.dtype, device=b.device).expand(rs.shape)
+    return x, r, rs, rn0, torch.clamp_min(rtol * rn0, atol)
+
+
+def _count(iters, live, step: int, batched: bool):
+    return iters + step * live.to(torch.int32) if batched else iters + step
+
+
 def cg(
     matvec: Callable,
     b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
     *,
     maxiter: int = 10000,
     rtol: float = 1e-5,
     atol: float = 0.0,
+    rnorm0=None,
     precond: Optional[Callable] = None,
     divtol: float = 1e5,
     matvec_dot: Optional[Callable] = None,
     precond_dot: Optional[Callable] = None,
+    batched: bool = False,
 ) -> KrylovResult:
-    """Preconditioned CG for SPD systems from the zero guess, stopping on
-    the TRUE residual norm ``||r||_2 <= max(rtol * ||b||, atol)`` (PETSc's
-    unpreconditioned norm type).
+    """Preconditioned CG for SPD systems, stopping on the TRUE residual
+    norm ``||r||_2 <= max(rtol * rnorm0, atol)`` (PETSc's unpreconditioned
+    norm type); ``rnorm0`` defaults to ``||b - A x0||``.
+
+    ``batched``: ``b`` (and ``x0``) are ``(k, n)``, ``matvec`` and
+    ``precond`` map ``(k, n)`` arrays, and the ``k`` systems iterate
+    together, each frozen once its own test fails; counts, norms and the
+    flag come back per system.  Otherwise ``b`` is one system of any
+    shape (a grid, for the stencils).
 
     ``matvec_dot``: optional fused ``p -> (A p, p · A p)``
     (``Stencil3D.mv_dot``).  ``precond_dot``: optional fused
@@ -66,52 +117,204 @@ def cg(
     iteration counts match it.
     """
     dtype = b.dtype
-    r = b   # x0 = 0 => r0 = b exactly
-    rs = _vdot(r, r)
-    rnorm0 = torch.sqrt(rs)
-    tol = torch.clamp_min(rtol * rnorm0, atol)
-    div = divtol * rnorm0
-
-    def keep_going(rs):
-        keep = torch.sqrt(rs) > tol
+    dot, col, commit = _batch_ops(batched)
+    x, r, rs, rn0, tol = _start(matvec, b, x0, rnorm0, rtol, atol, dot)
+    p = torch.zeros_like(b)
+    rz = torch.ones_like(rs)
+    iters = torch.zeros_like(rs, dtype=torch.int32) if batched else 0
+    trips = syncs = 0
+    while trips < maxiter:
+        live = torch.sqrt(rs) > tol
         if divtol > 0.0:
-            keep = keep & (torch.sqrt(rs) <= div)
-        return bool(keep)
-
-    x, p = torch.zeros_like(b), torch.zeros_like(b)
-    rz = torch.ones((), dtype=dtype, device=b.device)
-    iters = syncs = 0
-    while iters < maxiter:
+            live = live & (torch.sqrt(rs) <= divtol * rn0)
         syncs += 1
-        if not keep_going(rs):
+        if not bool(live.any() if batched else live):
             break
         if precond_dot is not None:
             z, rz_loc = precond_dot(r)
             rz_new = rz_loc.to(dtype)
         else:
             z = r if precond is None else precond(r)
-            rz_new = _vdot(r, z)
-        if iters == 0:
-            beta = torch.zeros((), dtype=dtype, device=b.device)
-        else:
-            nz = rz != 0
-            beta = torch.where(nz, rz_new / torch.where(nz, rz, 1.0), 0.0)
-        p = z + beta * p
+            rz_new = dot(r, z)
+        beta = torch.zeros_like(rz) if trips == 0 else _ratio(rz_new, rz)
+        p_new = z + col(beta) * p
         if matvec_dot is not None:
-            ap, pap = matvec_dot(p)
+            ap, pap = matvec_dot(p_new)
         else:
-            ap = matvec(p)
-            pap = _vdot(p, ap)
-        nz = pap != 0
-        alpha = torch.where(nz, rz_new / torch.where(nz, pap, 1.0), 0.0)
-        x = x + alpha * p
-        r = r - alpha * ap
-        rs = _vdot(r, r)
-        rz = rz_new
-        iters += 1
+            ap = matvec(p_new)
+            pap = dot(p_new, ap)
+        alpha = col(_ratio(rz_new, pap))
+        r_new = r - alpha * ap
+        x = commit(live, x + alpha * p_new, x)
+        p = commit(live, p_new, p)
+        rs = commit(live, dot(r_new, r_new), rs)
+        r = commit(live, r_new, r)
+        rz = commit(live, rz_new, rz)
+        iters = _count(iters, live, 1, batched)
+        trips += 1
     rnorm = torch.sqrt(rs)
-    return KrylovResult(x=x, iters=iters, resnorm=rnorm, resnorm0=rnorm0,
+    return KrylovResult(x=x, iters=iters, resnorm=rnorm, resnorm0=rn0,
                         converged=rnorm <= tol, syncs=syncs)
+
+
+def bicgstab(
+    matvec: Callable,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    *,
+    maxiter: int = 10000,
+    rtol: float = 1e-5,
+    atol: float = 0.0,
+    rnorm0=None,
+    precond: Optional[Callable] = None,
+    divtol: float = 1e5,
+    batched: bool = False,
+) -> KrylovResult:
+    """BiCGStab for general systems (the PETSc KSPBCGS analog).  ``iters``
+    counts matvecs, two per step.  ``precond``: optional RIGHT
+    preconditioner: the recurrence runs on ``A M`` and maps back at exit,
+    so the test sees the true residual.  A breakdown (``rho``, ``rhat·v``
+    or ``t·t`` zero) freezes the iterate and ends the solve, reported as
+    not converged.  ``batched`` as in ``cg``."""
+    dot, col, commit = _batch_ops(batched)
+    amv = matvec if precond is None else (lambda v: matvec(precond(v)))
+    x0_, r, rs, rn0, tol = _start(matvec, b, x0, rnorm0, rtol, atol, dot)
+    rhat = r                 # fixed shadow vector
+    y, p, v = torch.zeros_like(b), torch.zeros_like(b), torch.zeros_like(b)
+    rho = alpha = omega = torch.ones_like(rs)
+    broke = torch.zeros_like(rs, dtype=torch.bool)
+    iters = torch.zeros_like(rs, dtype=torch.int32) if batched else 0
+    trips = syncs = 0
+    while trips < maxiter:
+        live = (torch.sqrt(rs) > tol) & ~broke
+        if divtol > 0.0:
+            live = live & (torch.sqrt(rs) <= divtol * rn0)
+        syncs += 1
+        if not bool(live.any()):
+            break
+        rho_new = dot(rhat, r)
+        ok_rho = rho_new.abs() > 0
+        beta = torch.where(
+            ok_rho & (rho.abs() > 0) & (omega.abs() > 0),
+            (rho_new / torch.where(rho.abs() > 0, rho, 1.0))
+            * (alpha / torch.where(omega.abs() > 0, omega, 1.0)), 0.0)
+        p_new = r + col(beta) * (p - col(omega) * v)
+        v_new = amv(p_new)
+        rhv = dot(rhat, v_new)
+        ok_a = rhv.abs() > 0
+        alpha_new = torch.where(ok_a, rho_new / torch.where(ok_a, rhv, 1.0),
+                                0.0)
+        s = r - col(alpha_new) * v_new
+        t = amv(s)
+        ts, tt, ss = dot(t, s), dot(t, t), dot(s, s)
+        ok_w = tt > 0
+        omega_new = torch.where(ok_w, ts / torch.where(ok_w, tt, 1.0), 0.0)
+        y_new = y + col(alpha_new) * p_new + col(omega_new) * s
+        r_new = s - col(omega_new) * t
+        # ||r||^2 from the dots already taken
+        rs_new = torch.clamp_min(
+            torch.where(ok_w, ss - omega_new * ts, ss), 0.0)
+        broke_new = broke | ~ok_rho | ~ok_a | ~ok_w
+        rs_new = torch.where(broke_new, rs, rs_new)
+        y, r, p, v = (commit(live, y_new, y), commit(live, r_new, r),
+                      commit(live, p_new, p), commit(live, v_new, v))
+        rho, alpha, omega = (commit(live, rho_new, rho),
+                             commit(live, alpha_new, alpha),
+                             commit(live, omega_new, omega))
+        rs, broke = commit(live, rs_new, rs), commit(live, broke_new, broke)
+        iters = _count(iters, live, 2, batched)
+        trips += 2
+    x = x0_ + (y if precond is None else precond(y))
+    rnorm = torch.sqrt(rs)
+    return KrylovResult(x=x, iters=iters, resnorm=rnorm, resnorm0=rn0,
+                        converged=rnorm <= tol, syncs=syncs)
+
+
+def minres(
+    matvec: Callable,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    *,
+    maxiter: int = 10000,
+    rtol: float = 1e-5,
+    atol: float = 0.0,
+    rnorm0=None,
+    precond: Optional[Callable] = None,
+    divtol: float = 1e5,
+    batched: bool = False,
+) -> KrylovResult:
+    """MINRES for symmetric, possibly indefinite systems (the PETSc
+    KSPMINRES analog): Paige-Saunders Lanczos and Givens recurrences, one
+    matvec per iteration.  ``precond``: optional SPD preconditioner; the
+    recurrence residual, and so the test, is then ``||r||_M``.  An
+    indefinite ``M`` freezes the solve, reported as not converged.
+    ``batched`` as in ``cg``."""
+    dot, col, commit = _batch_ops(batched)
+    M = (lambda v: v) if precond is None else precond
+    eps = torch.finfo(b.dtype).eps
+    x = torch.zeros_like(b) if x0 is None else x0
+    r1 = b if x0 is None else b - matvec(x0)
+    y = M(r1)
+    beta1sq, rtrue0sq = dot(r1, y), dot(r1, r1)
+    # r'Mr <= 0 with a nonzero residual: M is not SPD
+    broke = (beta1sq <= 0) & (rtrue0sq > 0)
+    beta1 = torch.sqrt(torch.clamp_min(beta1sq, 0.0))
+    rn0 = beta1 if rnorm0 is None else torch.as_tensor(
+        rnorm0, dtype=b.dtype, device=b.device).expand(beta1.shape)
+    tol = torch.clamp_min(rtol * rn0, atol)
+
+    zero = torch.zeros_like(beta1)
+    r2, w, w2 = r1, torch.zeros_like(b), torch.zeros_like(b)
+    oldb, beta, dbar, epsln, phibar = zero, beta1, zero, zero, beta1
+    cs, sn = -torch.ones_like(beta1), zero
+    iters = torch.zeros_like(beta1, dtype=torch.int32) if batched else 0
+    trips = syncs = 0
+    while trips < maxiter:
+        live = (phibar > tol) & ~broke
+        if divtol > 0.0:
+            live = live & (phibar <= divtol * rn0)
+        syncs += 1
+        if not bool(live.any()):
+            break
+        # Lanczos step in the M inner product
+        ok_b = beta > 0
+        safe_b = torch.where(ok_b, beta, 1.0)
+        v = y / col(safe_b)
+        yk = matvec(v)
+        yk = yk - col(torch.where(
+            oldb > 0, beta / torch.where(oldb > 0, oldb, 1.0), 0.0)) * r1
+        alfa = dot(v, yk)
+        yk = yk - col(alfa / safe_b) * r2
+        yn = M(yk)
+        betasq = dot(yk, yn)
+        ok_m = betasq >= 0
+        beta_n = torch.sqrt(torch.where(ok_m, betasq, 0.0))
+        # Givens QR of the tridiagonal, right-hand-side update
+        delta = cs * dbar + sn * alfa
+        gbar = sn * dbar - cs * alfa
+        epsln_n = sn * beta_n
+        dbar_n = -cs * beta_n
+        gamma = torch.clamp_min(torch.sqrt(gbar * gbar + beta_n * beta_n), eps)
+        cs_n = gbar / gamma
+        sn_n = beta_n / gamma
+        phi = cs_n * phibar
+        # an M breakdown zeroed beta_n: keep the estimate as it was
+        phibar_n = torch.where(ok_m, (sn_n * phibar).abs(), phibar)
+        # solution update (three-term w recurrence)
+        wn = (v - col(epsln) * w2 - col(delta) * w) / col(gamma)
+        x = commit(live, x + col(phi) * wn, x)
+        r1, r2, y = commit(live, r2, r1), commit(live, yk, r2), commit(
+            live, yn, y)
+        w2, w = commit(live, w, w2), commit(live, wn, w)
+        oldb, beta = commit(live, beta, oldb), commit(live, beta_n, beta)
+        dbar, epsln = commit(live, dbar_n, dbar), commit(live, epsln_n, epsln)
+        phibar = commit(live, phibar_n, phibar)
+        cs, sn = commit(live, cs_n, cs), commit(live, sn_n, sn)
+        broke = commit(live, broke | ~ok_b | ~ok_m, broke)
+        iters = _count(iters, live, 1, batched)
+        trips += 1
+    return KrylovResult(x=x, iters=iters, resnorm=phibar, resnorm0=rn0,
+                        converged=(phibar <= tol) & ~broke, syncs=syncs)
 
 
 # ---------------------------------------------------------------------------

@@ -92,13 +92,14 @@ def cgne(
     matvec: Callable,
     rmatvec: Callable,
     b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
     *,
     maxiter: int = 100,
     rtol: float = 1e-8,
     atol: float = 0.0,
 ) -> KrylovResult:
-    """CG on the normal equations ``A^T A x = A^T b`` from the zero guess
-    (KSPCGNE, the reference's ``outer_solver_cgne``)."""
+    """CG on the normal equations ``A^T A x = A^T b`` (KSPCGNE, the
+    reference's ``outer_solver_cgne``), from ``x0`` or the zero guess."""
     atb = rmatvec(b)
-    return cg(lambda v: rmatvec(matvec(v)), atb, maxiter=maxiter, rtol=rtol,
-              atol=atol)
+    return cg(lambda v: rmatvec(matvec(v)), atb, x0, maxiter=maxiter,
+              rtol=rtol, atol=atol)

@@ -19,6 +19,7 @@ from typing import Callable, List
 import numpy as np
 import torch
 
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.core.device import resolve
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers import df64
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.krylov import cg
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.multigrid import (
@@ -54,7 +55,8 @@ def df_northstar_fused(
 ) -> RefineResult:
     """Double-float-refined MG-PCG solve of ``A x = b`` to ``rtol``
     relative TRUE residual.  ``b_df``: the (hi, lo) f32 pair of b; when
-    None, ``b = A·1`` is built on ``device``.  ``RefineResult.x`` is the
+    None, ``b = A·1`` is built on ``device`` (None: the current CUDA
+    device).  ``RefineResult.x`` is the
     device (hi, lo) pair; ``rel_history`` stays empty, as in JAX."""
     residual = df64.df_residual_for(op)
     # return_rdot: PCG's r·z comes out of the cycle's last sweep
@@ -62,7 +64,8 @@ def df_northstar_fused(
                            coarse_iters=coarse_iters, cycle=cycle,
                            return_rdot=True)
     if b_df is None:
-        bhi = op.mv(torch.ones(op.dims, dtype=torch.float32, device=device))
+        bhi = op.mv(torch.ones(op.dims, dtype=torch.float32,
+                               device=resolve(device)))
         b_df = (bhi, torch.zeros_like(bhi))
     bhi, blo = b_df
     rnorm0 = df64.scaled_norm(bhi)
@@ -105,7 +108,7 @@ def df_iterative_refinement(
     """Host-loop refinement with double-float residuals (the CLI's
     stacked MGPCG route).  ``solve_f32(r32 grid) -> d32`` is any f32
     device solve.  ``b64``: f64 numpy RHS, split to a df pair on
-    ``device``; or None with ``b_df``, a device (hi, lo) pair.
+    ``device`` (None: the current CUDA device); or None with ``b_df``, a device (hi, lo) pair.
     ``return_host=False`` leaves ``x`` as the device df pair."""
     residual = df64.df_residual_for(op)
     syncs = 0

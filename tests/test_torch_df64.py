@@ -142,7 +142,7 @@ class TestPrimitives:
 
     def test_f64_split_round_trip(self):
         x64 = np.random.default_rng(8).standard_normal((3, 4, 5)) / 3.0
-        th, tl = tdf.df_from_f64(x64)
+        th, tl = tdf.df_from_f64(x64, "cpu")
         jh, jl = jdf.df_from_f64(x64)
         _equal(th, jh)
         _equal(tl, jl)

@@ -256,3 +256,114 @@ class TestLeastSquares:
         _close(rt.x, rj.x, 1e-12)
         np.testing.assert_allclose(
             rt.x.numpy(), np.linalg.lstsq(R, rhs, rcond=None)[0], rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Slice 3: cg with a start, minres, bicgstab; one system and a batch
+# ---------------------------------------------------------------------------
+
+def _dia_pair(rows, cols, vals, shape):
+    return (jpoisson.coo_to_dia(rows, cols, vals, shape, dtype=jnp.float64),
+            tpoisson.coo_to_dia(rows, cols, vals, shape, dtype=torch.float64,
+                                device="cpu"))
+
+
+def _systems(kind):
+    """A JAX and a port operator on the same matrix, three right-hand
+    sides and three starts.  ``spd``: 2D Poisson 20x20.  ``nonsym``: the
+    same with a convection term.  ``indef``: a symmetric indefinite
+    matrix with a well-separated spectrum (diagonal of alternating sign,
+    magnitudes 1 to 3, weak tridiagonal coupling)."""
+    if kind == "indef":
+        size = 240
+        i = np.arange(size)
+        d = (1.0 + 2.0 * (i % 7) / 6.0) * np.where(i % 2, -1.0, 1.0)
+        rows = np.concatenate([i, i[:-1], i[1:]])
+        cols = np.concatenate([i, i[1:], i[:-1]])
+        vals = np.concatenate([d, np.full(2 * (size - 1), 0.05)])
+        shape = (size, size)
+    else:
+        rows, cols, vals, shape = jpoisson.poisson2d_coo(20, 20)
+        vals = vals.copy()
+        if kind == "nonsym":
+            vals[cols == rows + 1] += 0.4
+            vals[cols == rows - 1] -= 0.4
+    jop, top = _dia_pair(rows, cols, vals, shape)
+    size = shape[0]
+    B = np.stack([np.asarray(jop.mv(jnp.ones(size))), _np(size, 1),
+                  np.sin(np.arange(size))])
+    return jop, top, B, 0.1 * _np((3, size), 2)
+
+
+SOLVERS = [("cg", "spd"), ("minres", "spd"), ("minres", "indef"),
+           ("bicgstab", "nonsym")]
+
+
+class TestShortRecurrences:
+    """``cg``, ``minres`` and ``bicgstab`` against JAX in f64: iteration
+    counts equal per system, x to 1e-10, norms and flags alike; the batch
+    against one JAX solve per column (what ``jax.vmap`` of the
+    ``while_loop`` computes: a converged column stops changing)."""
+
+    @pytest.mark.parametrize("name,kind", SOLVERS)
+    @pytest.mark.parametrize("start", [False, True])
+    @pytest.mark.parametrize("pc", [False, True])
+    def test_single_and_batched_match_jax(self, name, kind, start, pc):
+        jop, top, B, X0 = _systems(kind)
+        dinv = 1.0 / np.abs(np.asarray(jop.to_dense()).diagonal())
+        pj = (lambda v: jnp.asarray(dinv) * v) if pc else None
+        pt = (lambda v: torch.from_numpy(dinv) * v) if pc else None
+        kw = dict(rtol=1e-8, maxiter=2000)
+        rj = [getattr(jkr, name)(jop.mv, jnp.asarray(B[i]),
+                                 jnp.asarray(X0[i]) if start else None,
+                                 precond=pj, **kw) for i in range(3)]
+        rt = getattr(tkr, name)(top.mv, torch.from_numpy(B),
+                                torch.from_numpy(X0) if start else None,
+                                precond=pt, batched=True, **kw)
+        assert rt.iters.tolist() == [int(r.iters) for r in rj]
+        assert rt.converged.tolist() == [bool(r.converged) for r in rj]
+        assert all(rt.converged.tolist())
+        for i in range(3):
+            _close(rt.x[i], rj[i].x, 1e-10)
+            one = getattr(tkr, name)(top.mv, torch.from_numpy(B[i]),
+                                     torch.from_numpy(X0[i]) if start
+                                     else None, precond=pt, **kw)
+            assert int(one.iters) == int(rj[i].iters)
+            _close(one.x, rj[i].x, 1e-10)
+            assert float(one.resnorm0) == pytest.approx(
+                float(rj[i].resnorm0), rel=1e-12)
+            assert float(rt.resnorm0[i]) == pytest.approx(
+                float(rj[i].resnorm0), rel=1e-12)
+        assert rt.syncs >= int(rt.iters.max()) // (2 if name == "bicgstab"
+                                                   else 1)
+
+    @pytest.mark.parametrize("name,kind", SOLVERS)
+    def test_budget_atol_and_pinned_norm(self, name, kind):
+        jop, top, B, _ = _systems(kind)
+        b = B[1]
+        for kw in (dict(rtol=1e-12, maxiter=7), dict(rtol=0.0, atol=1e-3),
+                   dict(rtol=1e-6, rnorm0=50.0)):
+            rj = getattr(jkr, name)(jop.mv, jnp.asarray(b), **kw)
+            rt = getattr(tkr, name)(top.mv, torch.from_numpy(b), **kw)
+            assert int(rt.iters) == int(rj.iters), kw
+            assert bool(rt.converged) == bool(rj.converged), kw
+            _close(rt.x, rj.x, 1e-10)
+            _close(rt.resnorm0, rj.resnorm0, 1e-12)
+
+    def test_minres_refuses_an_indefinite_preconditioner(self):
+        jop, top, B, _ = _systems("spd")
+        rj = jkr.minres(jop.mv, jnp.asarray(B[0]), precond=lambda v: -v)
+        rt = tkr.minres(top.mv, torch.from_numpy(B[0]), precond=lambda v: -v)
+        assert int(rt.iters) == int(rj.iters) == 0
+        assert not bool(rt.converged) and not bool(rj.converged)
+
+    def test_bicgstab_breakdown_is_not_convergence(self):
+        # A = [[0, 1], [-1, 0]], b = e1: rhat . A p = 0 at the first step
+        a = np.array([[0.0, 1.0], [-1.0, 0.0]])
+        b = np.array([1.0, 0.0])
+        rj = jkr.bicgstab(lambda v: jnp.asarray(a) @ v, jnp.asarray(b))
+        rt = tkr.bicgstab(lambda v: torch.from_numpy(a) @ v,
+                          torch.from_numpy(b))
+        assert int(rt.iters) == int(rj.iters) == 2
+        assert not bool(rt.converged) and not bool(rj.converged)
+        _close(rt.x, rj.x, 1e-15)

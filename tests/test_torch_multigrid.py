@@ -154,7 +154,7 @@ class TestPCGIterationsF64:
 
     def test_w_no_worse_than_v(self):
         top = tpoisson.poisson3d(32, 32, 32)
-        b = tpoisson.rhs_for_exact_ones(top, torch.float64)
+        b = tpoisson.rhs_for_exact_ones(top, torch.float64, "cpu")
         its = {c: tkr.cg(top.mv, b, rtol=1e-8, maxiter=50,
                          precond=tmg.mg_preconditioner(top, cycle=c)).iters
                for c in ("w", "v")}
@@ -190,7 +190,7 @@ class TestPCGIterationsF64:
 class TestBf16Cycle:
     def test_explicit_bf16_cycle_preconditions_cg(self):
         top = tpoisson.poisson3d(16, 16, 16)
-        b = tpoisson.rhs_for_exact_ones(top, torch.float32)
+        b = tpoisson.rhs_for_exact_ones(top, torch.float32, "cpu")
         M = tmg.mg_preconditioner(top, dtype=torch.bfloat16)
         assert M(b).dtype == torch.float32   # cast back to the input dtype
         res = tkr.cg(top.mv, b, rtol=1e-6, maxiter=60, precond=M)
@@ -198,7 +198,7 @@ class TestBf16Cycle:
 
     def test_auto_threshold(self, monkeypatch):
         top = tpoisson.poisson3d(8, 8, 8)
-        b = tpoisson.rhs_for_exact_ones(top, torch.float32)
+        b = tpoisson.rhs_for_exact_ones(top, torch.float32, "cpu")
         monkeypatch.setattr(tmg, "_BF16_CYCLE_BYTES", 1)
         z16, d16 = tmg.mg_preconditioner(top, return_rdot=True)(b)
         assert z16.dtype == torch.float32 and d16.dtype == torch.float32

@@ -198,7 +198,7 @@ class TestRejects:
         ("gmres", "bjacobi"), ("gmres", "mg")])
     def test_not_ported(self, method, pc):
         op = tbo.block_poisson2d(8, 8)
-        b = tbo.rhs_ones(op, torch.float64)
+        b = tbo.rhs_ones(op, torch.float64, "cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tms.sm(op, b, inner=tms.InnerConfig(method=method, pc=pc))
 
@@ -207,7 +207,7 @@ class TestRejects:
         "inner_method", "outer_method", "per_block_global", "basis"])
     def test_bad_arguments(self, case):
         op = tbo.block_poisson2d(8, 8)
-        b = tbo.rhs_ones(op, torch.float64)
+        b = tbo.rhs_ones(op, torch.float64, "cpu")
         calls = {
             "schedule": lambda: tms.multisplit_solve(op, b, schedule="chaotic"),
             "scope": lambda: tms.smsm(op, b, scope="everywhere"),
@@ -237,7 +237,7 @@ class TestConvertAndExports:
                   for f in ("x", "sweeps", "cycles", "inner_iters", "rnorm",
                             "rnorm0", "local_rnorms", "outer_rnorm",
                             "converged", "history", "certified", "tail_sweeps")}
-        r = convert.multisplit_result_from_numpy(fields)
+        r = convert.multisplit_result_from_numpy(fields, "cpu")
         assert isinstance(r.x, torch.Tensor) and r.sweeps == int(rj.sweeps)
         assert r.converged is bool(rj.converged) and r.history is None
         back = convert.multisplit_result_to_numpy(r)

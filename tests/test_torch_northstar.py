@@ -47,7 +47,7 @@ class TestNorthstar:
         # the same b = A·1 (small integers, exact in f32), from numpy
         b = jref.stencil3d_mv_np(n, n, n)(np.ones(n ** 3)).reshape(n, n, n)
         b_df = convert.df_pair_from_numpy(b.astype(np.float32),
-                                          np.zeros_like(b, np.float32))
+                                          np.zeros_like(b, np.float32), "cpu")
         rt = port.df_northstar_fused(port.poisson3d(n, n, n), b_df, rtol=1e-8)
         assert rt.converged and rj.converged
         assert rt.passes == rj.passes <= 3
@@ -67,7 +67,7 @@ class TestNorthstar:
 
     def test_max_passes_stops(self):
         r = port.df_northstar_fused(port.poisson3d(16, 16, 16), rtol=1e-14,
-                                    max_passes=1)
+                                    max_passes=1, device="cpu")
         assert r.passes == 1 and not r.converged
 
     def test_iterative_refinement_matches_jax(self):
@@ -82,7 +82,8 @@ class TestNorthstar:
         rj = jref.df_iterative_refinement(jop, b64, solve_j, rtol=1e-10)
         rt = tref.df_iterative_refinement(
             top, b64, lambda r: port.cg(top.mv, r, maxiter=40, rtol=1e-5,
-                                        precond=Mt).x, rtol=1e-10)
+                                        precond=Mt).x, rtol=1e-10,
+            device="cpu")
         assert rt.converged and rj.converged
         assert rt.passes == rj.passes
         # the f32 solves round differently: the residuals agree in size
@@ -90,13 +91,14 @@ class TestNorthstar:
                                    np.log10(rj.rel_history), atol=0.3)
         np.testing.assert_allclose(rt.x, 1.0, atol=1e-9)
         # the device-pair form of b, and the pair left on the device
-        b_df = tdf.df_from_f64(b64)
+        b_df = tdf.df_from_f64(b64, "cpu")
         rd = tref.df_iterative_refinement(
             top, None, lambda r: port.cg(top.mv, r, maxiter=40, rtol=1e-5,
                                          precond=Mt).x, rtol=1e-10,
             b_df=b_df, return_host=False)
         assert rd.passes == rt.passes and isinstance(rd.x, tuple)
-        zero = tref.df_iterative_refinement(top, np.zeros((n, n, n)), None)
+        zero = tref.df_iterative_refinement(top, np.zeros((n, n, n)), None,
+                                            device="cpu")
         assert zero.converged and zero.passes == 0
 
     def test_host_matvec_matches_jax(self):
@@ -119,16 +121,17 @@ class TestConvert:
     def test_arrays(self):
         a = np.random.default_rng(1).standard_normal((3, 4, 5)).astype(np.float32)
         bf = np.asarray(jnp.asarray(a).astype(jnp.bfloat16))
-        t = convert.tensor_from_numpy(bf)
+        t = convert.tensor_from_numpy(bf, "cpu")
         assert t.dtype == torch.bfloat16
         np.testing.assert_array_equal(t.float().numpy(), bf.astype(np.float32))
-        np.testing.assert_array_equal(convert.tensor_from_numpy(a).numpy(), a)
+        np.testing.assert_array_equal(convert.tensor_from_numpy(a, "cpu").numpy(), a)
         hi, lo = jdf.df_from_f64(a.astype(np.float64) / 3.0)
-        th, tl = convert.df_pair_from_numpy(np.asarray(hi), np.asarray(lo))
+        th, tl = convert.df_pair_from_numpy(np.asarray(hi), np.asarray(lo),
+                                            "cpu")
         np.testing.assert_array_equal(th.numpy(), np.asarray(hi))
         np.testing.assert_array_equal(tl.numpy(), np.asarray(lo))
         with pytest.raises(ValueError):
-            convert.df_pair_from_numpy(a.astype(np.float64), a)
+            convert.df_pair_from_numpy(a.astype(np.float64), a, "cpu")
 
 
 def _imports(path):
@@ -157,7 +160,11 @@ class TestBoundary:
             "poisson2d", "Stencil2D", "gmres", "chebyshev", "StackedStencil2D",
             "StackedStencil3D", "block_poisson2d", "block_poisson3d",
             "rhs_ones", "final_residual_norm", "InnerConfig", "OuterConfig",
-            "MultisplitResult", "multisplit_solve", "sm", "am", "smsm", "amam"}
+            "MultisplitResult", "multisplit_solve", "sm", "am", "smsm", "amam",
+            # slice 3
+            "solve", "prepare", "lstsq", "PreparedSolver", "DenseOp", "ELL",
+            "DIA", "BSR", "AIJ", "operator_from_coo", "from_scipy",
+            "as_routed_operator", "minres", "bicgstab", "default_device"}
 
     def test_chip_smoke_refuses_without_a_card(self, tmp_path):
         assert not torch.cuda.is_available()

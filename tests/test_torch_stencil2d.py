@@ -118,9 +118,9 @@ class TestOperatorF64:
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
         dense = tpoisson.poisson2d_dense_np(m, n)
         np.testing.assert_array_equal(dense, jpoisson.poisson2d_dense_np(m, n))
-        np.testing.assert_array_equal(top.to_dense(torch.float64).numpy(),
+        np.testing.assert_array_equal(top.to_dense(torch.float64, "cpu").numpy(),
                                       dense)
-        bt = tpoisson.rhs_for_exact_ones(top, torch.float64)
+        bt = tpoisson.rhs_for_exact_ones(top, torch.float64, "cpu")
         np.testing.assert_array_equal(bt.numpy(),
                                       np.asarray(jpoisson.rhs_for_exact_ones(jop)))
         # the operator is the dense matrix
@@ -194,7 +194,7 @@ class TestStackedF64:
         np.testing.assert_allclose(
             top.full_mv(torch.from_numpy(x).reshape(2, 24)).reshape(-1).numpy(),
             dense @ x, rtol=1e-12, atol=1e-12)
-        bt = tbo.rhs_ones(top, torch.float64)
+        bt = tbo.rhs_ones(top, torch.float64, "cpu")
         np.testing.assert_array_equal(
             bt.numpy(), np.asarray(jbo.rhs_ones(jop, jnp.float64)))
 
