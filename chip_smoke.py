@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's three slices on one NVIDIA GPU: the 3D Poisson
-north-star, the thesis's two-stage multisplitting solvers, and the
-one-call solve API over general sparse matrices.
+"""Drive the PyTorch port's four slices on one NVIDIA GPU: the 3D Poisson
+north-star, the thesis's two-stage multisplitting solvers, the one-call
+solve API over general sparse matrices, and the stencil family's fused
+PCG direction, fused residual norms, 2D multigrid north-star and
+multigrid-preconditioned inner solves.
 
 Run from the root of a checkout:
 
     python3 chip_smoke.py
+
+(With phase names as arguments, of ``PHASES`` below, only those phases
+run, for work on one of them; such a run prints no result lines.)
 
 It imports the port (``medane_tchakorom_ufc_thesis_repository_tpu_torch``)
 from this checkout and nothing of JAX, and:
@@ -30,13 +35,45 @@ from this checkout and nothing of JAX, and:
    vectors, two launches giving equal bits.  Times kernel, plain and,
    where one PyTorch call computes the same function, that call, at the
    paths' shapes (CUDA events, median of 20), beside the least time the
-   card could take (bytes over 3.35 TB/s, operations over 67 TFLOP/s);
+   card could take (bytes over 3.35 TB/s, operations over 67 TFLOP/s).
+   Kernel A also in f64 at the small shapes, kernel E also in bf16.
+   Kernel J (PCG's fused direction update) at 512^3, the odd shape and
+   4^3 in f32, bf16 and f64, with beta 0, negative, and read from a
+   device tensor: p' must have the bits of ``z + beta * p``, and in f32
+   the whole triple the bits of that axpy followed by kernel A's
+   ``mv_dot``.  Kernels K and L (the applies with a fused residual norm)
+   at 512^3 and 8192^2 and the odd shapes in f32 and f64: y must have the
+   bits of the operator's ``mv``, the norm agree to 1e-5, and two
+   launches give equal bits.  No one PyTorch call computes J, K or L;
+   beside each the composition the port would run without it is timed;
 5. north-star phase: ``df_northstar_fused(op, b_df, rtol=1e-8,
    inner_rtol=1e-4)`` at 256^3 and 512^3 with b = A·1.  The first run
    at each size is counted: kernels A-D must have been launched.  It
    must converge in at most 3 passes, to a relative residual <= 1e-8
-   recomputed in f64 on the card, with max|x - 1| <= 1e-6.  The solve
-   time is the median of 3 more runs;
+   recomputed in f64 on the card, with max|x - 1| <= 1e-6.  At 512^3
+   the solve time is the median of 3 more runs;
+5a. fused-direction phase, 512^3: ``df_iterative_refinement`` around
+   ``cg(..., precond_dot=W-cycle, matvec_dot=op.mv_dot,
+   matvec_axpy_dot=op.axpy_mv_dot)`` and the same without the hook.
+   Both must meet the north-star's bounds with equal PCG iteration
+   counts; the hooked run must launch kernel J once per PCG iteration
+   and ``mv_dot`` never.  Then ``residual_norm_sq`` (kernel K) on the
+   solution moved off by noise, against the f64 residual.  Solve times
+   are medians of 3;
+5b. 2D north-star phase: ``df_northstar_fused(poisson2d(2048, 2048))``
+   with its defaults (W-cycle), once; at 8192^2, where the default
+   W-cycle visits the coarsest of 12 levels 1024 times (a minute and a
+   half of launches), the same refinement through
+   ``df_iterative_refinement`` around PCG with one f32 V-cycle, to the
+   north-star's bounds, timed 3 times; ``residual_norm_sq`` (kernel L)
+   beside the f64 residual; ``device_iterative_refinement`` (f64
+   residual on the card) around the same PCG; the 2D double-float
+   residual on the card against the same function on the CPU, bit for
+   bit;
+5c. cycle-precision phase: one multigrid cycle in f32 and in bf16 at
+   128^3, 256^3, 2048^2 and 8192^2, the reading behind
+   ``multigrid._BF16_CYCLE_BYTES``, and the 2D PCG iteration counts by
+   cycle type and cycle precision;
 6. golden phase: SM, AM (staleness 2), SMSM_LOCAL, SMSM_SEMI_LOCAL and
    SMSM_GLOBAL on the 2D 32^2 strips in f64, through the kernels: the
    sweep counts must be exactly 42, 88, 36, 12 and 12;
@@ -47,7 +84,13 @@ from this checkout and nothing of JAX, and:
    Each must converge (AM certified), to ||b - A x|| / ||r0|| under its
    rtol recomputed in f64 on the card.  Prints sweeps, cycles, inner
    iterations, host syncs, launches, the solve time (median of 3 more
-   runs) and peak memory;
+   runs, one for AM) and peak memory;
+7a. inner-solve phase, in f32, each run once and counted: SM on the 3D
+   64^3 strips with GMRES inner solves left-preconditioned by a W-cycle
+   (``InnerConfig(pc='mg')``), beside the unpreconditioned SM, and
+   SMSM_GLOBAL 2D 1024^2 with inner ``cg`` + ``pc='mg'`` (at 4096^2 the
+   batched W-cycle on the strips' 10 levels makes it two minutes of
+   launches); all must converge to their rtol recomputed in f64;
 8. calibration phase: the per-stored-value times of kernel I by block
    size, of kernel H and of ``ELL.mv`` relative to ``DIA.mv``, and the
    largest n at which ``DenseOp.mv`` is no slower than kernel H: the
@@ -115,7 +158,17 @@ ENTRIES = [
     ("maxpy", "mdot.cu", f"{FUSED}:439", ("f32", "f32"), "thesis"),
     ("csr_mv", "csr_mv.cu", f"{AIJ_REF}:307", ("f32", "f32"), "api"),
     ("bsr_mv", "bsr_mv.cu", f"{BSR_REF}:51", ("f32", "f32"), "api"),
+    ("stencil3d_axpy_mv_dot", "stencil3d.cu", f"{REF}:721", ("f32", "f32"),
+     "fused"),
+    ("stencil3d_mv_norm", "stencil3d.cu", f"{FUSED}:355", ("f32", "f32"),
+     "fused"),
+    ("stencil2d_mv_norm", "stencil2d.cu", f"{FUSED}:255", ("f32", "f32"),
+     "fused"),
 ]
+# the phases, in the order they run
+PHASES = ("kernels", "kernels2d", "fusedkernels", "sparse", "northstar",
+          "fused", "northstar2d", "cycle", "golden", "thesis", "inner",
+          "calibration", "api")
 # the card's published peaks: memory rate, and f32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = 67e12
@@ -173,16 +226,49 @@ def main() -> None:
     build.load_all()
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
+    only = sys.argv[1:]
+    unknown = [p for p in only if p not in PHASES]
+    if unknown:
+        sys.exit(f"chip_smoke: unknown phases {unknown}; known: {PHASES}")
+    if {"calibration", "api"} & set(only):
+        only.append("sparse")      # they take its matrices and timings
+    todo = [p for p in PHASES if not only or p in only]
+
     t_all = time.perf_counter()
-    report = kernel_phase(torch, k, dev)
-    report.update(kernel_phase_2d(torch, dev))
-    sparse_report, cases = kernel_phase_sparse(torch, dev)
-    report.update(sparse_report)
-    launches = slice_phase(torch, port, k, dev)
-    golden_phase(torch, port, dev)
-    launches.update(thesis_phase(torch, port, dev))
-    calibration_phase(torch, port, dev, cases["csr_ms_per_nnz"], card)
-    launches.update(api_phase(torch, port, dev, cases, report))
+    report, launches, cases = {}, {}, {}
+    for phase in todo:
+        t0 = time.perf_counter()
+        if phase == "kernels":
+            report.update(kernel_phase(torch, k, dev))
+        elif phase == "kernels2d":
+            report.update(kernel_phase_2d(torch, dev))
+        elif phase == "fusedkernels":
+            report.update(kernel_phase_fused(torch, k, dev))
+        elif phase == "sparse":
+            sparse_report, cases = kernel_phase_sparse(torch, dev)
+            report.update(sparse_report)
+        elif phase == "northstar":
+            launches.update(slice_phase(torch, port, k, dev))
+        elif phase == "fused":
+            launches.update(fused_direction_phase(torch, port, k, dev))
+        elif phase == "northstar2d":
+            launches.update(northstar2d_phase(torch, port, dev))
+        elif phase == "cycle":
+            cycle_precision_phase(torch, port, dev, card)
+        elif phase == "golden":
+            golden_phase(torch, port, dev)
+        elif phase == "thesis":
+            launches.update(thesis_phase(torch, port, dev))
+        elif phase == "inner":
+            inner_phase(torch, port, dev)
+        elif phase == "calibration":
+            calibration_phase(torch, port, dev, cases["csr_ms_per_nnz"], card)
+        elif phase == "api":
+            launches.update(api_phase(torch, port, dev, cases, report))
+        log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    if only:
+        log(f"partial run of {todo}: no result lines")
+        return
     kernels = []
     for name, src, replaces, _, _ in ENTRIES:
         r = report[name]
@@ -192,6 +278,9 @@ def main() -> None:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if not launches[name] > 0 or None in (r["ms"], r["plain_ms"],
+                                              r["bound_ms"]):
+            raise AssertionError(f"kernel entry incomplete: {kernels[-1]}")
     log(f"whole run: {time.perf_counter() - t_all:.1f} s after the build")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -218,7 +307,8 @@ def check(torch, what: str, out, ref, tol: str, dot_floor: float = 0.0) -> float
         raise AssertionError(f"{what}: got {out.dtype}{tuple(out.shape)}, "
                              f"expected {ref.dtype}{tuple(ref.shape)}")
     if tol == "bits":
-        as_int = {4: torch.int32, 8: torch.int64}[out.element_size()]
+        as_int = {2: torch.int16, 4: torch.int32,
+                  8: torch.int64}[out.element_size()]
         diff = out.view(as_int) != ref.view(as_int)
         if diff.any():
             raise AssertionError(f"{what}: {int(diff.sum())} values differ in "
@@ -334,12 +424,13 @@ def stencil_conv(torch, x, diag: float, off: float):
 
 def kernel_phase(torch, k, dev) -> dict:
     torch.backends.cudnn.allow_tf32 = False     # the yardsticks in full f32
-    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16, "f64": torch.float64}
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
     def rand(shape, dtype):
-        return torch.randn(shape, generator=gen, device=dev).to(dt[dtype])
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float64).to(dt[dtype])
 
     report = new_report("northstar")
     timed = {name: dts for name, _, _, dts, _ in ENTRIES}
@@ -379,7 +470,8 @@ def kernel_phase(torch, k, dev) -> dict:
                 f"({r['bound_by']}), library {r['library_ms']}")
 
     for shape in (FULL, ODD, TINY):
-        for xd, od in combos:
+        # f64 (kernel A alone computes in it) at the small shapes
+        for xd, od in combos + ([("f64", "f64")] if shape != FULL else []):
             x = rand(shape, xd)
             b = rand(shape, xd)
             odt = dt[od]
@@ -476,8 +568,9 @@ def kernel_phase_2d(torch, dev) -> dict:
                                 f"({least['bound_by']})" if least else ""))
 
     for shape in E_SHAPES:
-        for dtype in (torch.float32, torch.float64):
-            x = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+        for dtype in (torch.float32, torch.float64, torch.bfloat16):
+            x = torch.randn(shape, generator=gen, device=dev,
+                            dtype=torch.float32).to(dtype)
             for name, panel in (("stencil2d_apply[mv]", False),
                                 ("stencil2d_apply[spmm]", True)):
                 def kernel():
@@ -497,7 +590,8 @@ def kernel_phase_2d(torch, dev) -> dict:
                           json_entry=shape == E_TIMED[name]
                           and dtype == torch.float32,
                           least=bound(2 * nbytes(x), 9 * x.numel()),
-                          library=stencil_conv(torch, x, 4.0, -1.0))
+                          library=(None if dtype == torch.bfloat16
+                                   else stencil_conv(torch, x, 4.0, -1.0)))
             del x
         log(f"kernel E: {shape} ok")
 
@@ -554,6 +648,189 @@ def kernel_phase_2d(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Kernels J, K and L
+# ---------------------------------------------------------------------------
+
+FULL_2D = (8192, 8192)
+ODD_2D = (37, 130)
+
+
+def kernel_phase_fused(torch, k, dev) -> dict:
+    """Kernel J (``stencil3d_axpy_mv_dot``) and kernels K and L (the 3D and
+    2D applies with a fused residual norm) against their plain versions.
+
+    J: p' must have the plain version's bits (both round the product and
+    the sum on their own); A p' agrees to the f32 / bf16 / f64 tolerance of
+    ``check`` and the dot to 1e-5; in f32 the triple must have the bits of
+    ``z + beta * p`` followed by kernel A's ``mv_dot``; two launches give
+    equal bits.  K, L: y must have the bits of kernel A's / kernel E's
+    ``mv`` (and so, in 2D, of the plain version), the norm agrees to 1e-5
+    (f64: 1e-12), two launches give equal bits.  Each is timed in f32 at
+    the main path's shape beside the composition the port would run
+    without it; no single PyTorch call computes any of the three."""
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import fused
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import stencil2d as e
+
+    report = new_report("fused")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16, "f64": torch.float64}
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float64).to(dtype)
+
+    def note(name, err):
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+
+    def finish(name, what, kernel, plain, composed, composed_what, least):
+        r = report[name]
+        r.update(ms=median_ms(torch, kernel), plain_ms=median_ms(torch, plain),
+                 **least)
+        c_ms = median_ms(torch, composed)
+        log(f"{name} {what}: kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']}), library none")
+        log(f"{name} {what}: the composition without it ({composed_what}) "
+            f"{c_ms:.3f} ms, {c_ms / r['ms']:.2f}x the kernel")
+
+    # --- kernel J
+    name = "stencil3d_axpy_mv_dot"
+    for shape in (FULL, ODD, TINY):
+        for d in ("f32", "bf16", "f64"):
+            if shape == FULL and d == "f64":
+                continue           # 1 GiB a grid; the path is f32
+            z, p = rand(shape, dts[d]), rand(shape, dts[d])
+            cdt = torch.float64 if d == "f64" else torch.float32
+            betas = (0.0, -0.37, torch.tensor(0.61, dtype=cdt, device=dev))
+            for beta in betas:
+                what = f"{name} {d} {shape} beta {float(beta):+.2f}"
+                pn, ap, dot = k.stencil3d_axpy_mv_dot(z, p, beta, diag=DIAG,
+                                                      off=OFF)
+                again = k.stencil3d_axpy_mv_dot(z, p, beta, diag=DIAG, off=OFF)
+                rp, ra, rd = k.stencil3d_axpy_mv_dot_plain(z, p, beta,
+                                                           diag=DIAG, off=OFF)
+                torch.cuda.synchronize()
+                for a, b in zip((pn, ap, dot), again):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"{what}: two launches differ")
+                check(torch, what + " p'", pn, rp, "bits")
+                note(name, check(torch, what + " A p'", ap, ra, d))
+                norm = torch.linalg.vector_norm
+                floor = (1e-12 if d == "f64" else 1e-6) * float(
+                    norm(rp.double()) * norm(ra.double()))
+                # the plain dot is an f32 sum in every dtype
+                check(torch, what + " dot", dot, rd, "dot", floor)
+                if d == "f32":
+                    # what cg computes without the hook
+                    pe = z + beta * p
+                    y, dd = k.stencil3d_apply(pe, kind="mv_dot", diag=DIAG,
+                                              off=OFF)
+                    torch.cuda.synchronize()
+                    check(torch, what + " p' against the axpy", pn, pe, "bits")
+                    check(torch, what + " A p' against mv_dot", ap, y, "bits")
+                    check(torch, what + " dot against mv_dot", dot, dd, "bits")
+                    del pe, y, dd
+                del pn, ap, dot, again, rp, ra, rd
+            if shape == FULL and d == "f32":
+                beta = betas[2]
+                finish(name, f"f32 {shape}",
+                       lambda: k.stencil3d_axpy_mv_dot(z, p, beta, diag=DIAG,
+                                                       off=OFF),
+                       lambda: k.stencil3d_axpy_mv_dot_plain(z, p, beta,
+                                                             diag=DIAG, off=OFF),
+                       lambda: k.stencil3d_apply(
+                           torch.add(z, p, alpha=0.61), kind="mv_dot",
+                           diag=DIAG, off=OFF),
+                       "torch.add(z, p, alpha=beta) + kernel A mv_dot",
+                       bound(4 * nbytes(z), 17 * z.numel()))
+            del z, p
+        log(f"kernel J: {shape} ok")
+
+    # --- kernel K
+    name = "stencil3d_mv_norm"
+    for shape in (FULL, ODD, TINY):
+        for d in ("f32", "f64"):
+            if shape == FULL and d == "f64":
+                continue
+            nx, ny, nz = shape
+            g, bg = rand(shape, dts[d]), rand(shape, dts[d])
+            x, b = g.reshape(-1), bg.reshape(-1)
+            what = f"{name} {d} {shape}"
+
+            def kernel():
+                return fused.stencil3d_mv_norm(x, b, nx=nx, ny=ny, nz=nz,
+                                               diag=DIAG, off=OFF)
+
+            def plain():
+                return fused.stencil3d_mv_norm_plain(x, b, nx=nx, ny=ny, nz=nz,
+                                                     diag=DIAG, off=OFF)
+
+            (y, sq), (y2, sq2), (yp, sqp) = kernel(), kernel(), plain()
+            mv = k.stencil3d_apply(g, kind="mv", diag=DIAG, off=OFF)
+            torch.cuda.synchronize()
+            if not (torch.equal(y, y2) and torch.equal(sq, sq2)):
+                raise AssertionError(f"{what}: two launches differ")
+            check(torch, what + " y against Stencil3D.mv", y, mv.reshape(-1),
+                  "bits")
+            note(name, check(torch, what + " y", y, yp, d))
+            check(torch, what + " norm", sq, sqp,
+                  "dot64" if d == "f64" else "dot")
+            del y, y2, yp, mv
+            if shape == FULL and d == "f32":
+                def composed():
+                    r = bg - k.stencil3d_apply(g, kind="mv", diag=DIAG, off=OFF)
+                    return torch.sum(r * r)
+
+                finish(name, f"f32 {shape}", kernel, plain, composed,
+                       "kernel A mv + torch.sum((b - y)^2)",
+                       bound(3 * nbytes(x), 16 * x.numel()))
+            del g, bg, x, b
+        log(f"kernel K: {shape} ok")
+
+    # --- kernel L
+    name = "stencil2d_mv_norm"
+    for shape in (FULL_2D, (2048, 4096), ODD_2D):
+        for d in ("f32", "f64"):
+            m, n = shape
+            g, bg = rand(shape, dts[d]), rand(shape, dts[d])
+            x, b = g.reshape(-1), bg.reshape(-1)
+            what = f"{name} {d} {shape}"
+
+            def kernel():
+                return fused.stencil2d_mv_norm(x, b, m=m, n=n, diag=4.0,
+                                               off=-1.0)
+
+            def plain():
+                return fused.stencil2d_mv_norm_plain(x, b, m=m, n=n, diag=4.0,
+                                                     off=-1.0)
+
+            (y, sq), (y2, sq2), (yp, sqp) = kernel(), kernel(), plain()
+            mv = e.stencil2d_apply(g[None], diag=4.0, off=-1.0)
+            torch.cuda.synchronize()
+            if not (torch.equal(y, y2) and torch.equal(sq, sq2)):
+                raise AssertionError(f"{what}: two launches differ")
+            check(torch, what + " y against Stencil2D.mv", y, mv.reshape(-1),
+                  "bits")
+            note(name, check(torch, what + " y", y, yp, "bits"))
+            check(torch, what + " norm", sq, sqp,
+                  "dot64" if d == "f64" else "dot")
+            del y, y2, yp, mv
+            if shape == FULL_2D and d == "f32":
+                def composed():
+                    r = bg - e.stencil2d_apply(g[None], diag=4.0, off=-1.0)[0]
+                    return torch.sum(r * r)
+
+                finish(name, f"f32 {shape}", kernel, plain, composed,
+                       "kernel E mv + torch.sum((b - y)^2)",
+                       bound(3 * nbytes(x), 12 * x.numel()))
+            del g, bg, x, b
+        log(f"kernel L: {shape} ok")
+    torch.cuda.empty_cache()
+    return report
+
+
+# ---------------------------------------------------------------------------
 # North-star phase
 # ---------------------------------------------------------------------------
 
@@ -582,13 +859,15 @@ def slice_phase(torch, port, k, dev) -> dict:
         if missing:
             raise AssertionError(f"{n}^3: kernels never launched: {missing}")
         launches = {m: counts[m] for m in names}
-        times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = solve()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+        times = [first_s]          # the smaller size is timed once
+        if n == SLICE[-1]:
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = solve()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
 
         xhi, xlo = res.x
         x64 = xhi.double() + xlo.double()
@@ -602,7 +881,7 @@ def slice_phase(torch, port, k, dev) -> dict:
             f"host syncs {res.syncs}, df rel {res.rnorm / res.rnorm0:.3e}, "
             f"f64 rel {rel:.3e}, max|x-1| {err:.3e}")
         log(f"{n}^3: solve {statistics.median(times) * 1e3:.1f} ms median of "
-            f"3 {[round(t * 1e3, 1) for t in times]} (first run "
+            f"{len(times)} {[round(t * 1e3, 1) for t in times]} (first run "
             f"{first_s * 1e3:.1f} ms), peak memory {peak / 2**30:.2f} GiB")
         log(f"{n}^3: kernel launches per solve {counts}")
         if not (res.converged and res.passes <= 3):
@@ -615,6 +894,312 @@ def slice_phase(torch, port, k, dev) -> dict:
         del op, bhi, b_df, res, xhi, xlo
         torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Fused-direction, 2D north-star and cycle-precision phases
+# ---------------------------------------------------------------------------
+
+def f64_check(torch, op, xhi, xlo, bhi, probe):
+    """``(||b - A x|| / ||b||, max|x - 1|, ||b - A probe||)`` in f64 on the
+    card through the plain applies, for a stencil operator, a double-float
+    x and an f32 ``probe``."""
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import stencil2d as e
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import stencil3d as k
+
+    def apply(x64):
+        if hasattr(op, "m"):
+            return e.stencil2d_apply_plain(x64[None], diag=op.diag,
+                                           off=op.off)[0]
+        return k.stencil3d_apply_plain(x64, kind="mv", diag=op.diag, off=op.off)
+
+    norm = torch.linalg.vector_norm
+    b64 = bhi.double()
+    x64 = xhi.double() + xlo.double()
+    rel = float(norm(b64 - apply(x64)) / norm(b64))
+    err = float((x64 - 1.0).abs().max())
+    del x64
+    r_probe = float(norm(b64 - apply(probe.double())))
+    return rel, err, r_probe
+
+
+def probe_of(torch, xhi):
+    """The solution moved off by 1e-3 of noise: b = A·1 is solved by an
+    exactly representable x, whose residual is 0 and tests no norm."""
+    gen = torch.Generator(device=xhi.device)
+    gen.manual_seed(7)
+    return xhi + 1e-3 * torch.randn(xhi.shape, generator=gen,
+                                    device=xhi.device)
+
+
+def expect_solution(label, res, rel, err) -> None:
+    if not (res.converged and res.passes <= 3):
+        raise AssertionError(f"{label}: converged={res.converged} in "
+                             f"{res.passes} passes")
+    if not rel <= 1e-8:
+        raise AssertionError(f"{label}: f64 relative residual {rel:.3e}")
+    if not err <= 1e-6:
+        raise AssertionError(f"{label}: max|x - 1| = {err:.3e}")
+
+
+def fused_direction_phase(torch, port, k, dev) -> dict:
+    """The 512^3 north-star with PCG's direction update fused into the
+    matvec (kernel J behind ``cg``'s ``matvec_axpy_dot`` hook), beside the
+    same solve without the hook, then kernel K on the solution.  Returns
+    the launches of J and K in the counted window."""
+    n = SLICE[-1]
+    op = port.poisson3d(n, n, n)
+    bhi = op.mv(torch.ones((n, n, n), dtype=torch.float32, device=dev))
+    b_df = (bhi, torch.zeros_like(bhi))
+    Md = port.mg_preconditioner(op, return_rdot=True)
+
+    def solve(hook: bool):
+        iters = []
+
+        def solve_f32(r):
+            res = port.cg(op.mv, r, rtol=1e-4, maxiter=40, precond_dot=Md,
+                          matvec_dot=op.mv_dot,
+                          matvec_axpy_dot=op.axpy_mv_dot if hook else None)
+            iters.append(res.iters)
+            return res.x
+
+        res = port.df_iterative_refinement(op, None, solve_f32, rtol=1e-8,
+                                           b_df=b_df, return_host=False)
+        return res, iters
+
+    out = {}
+    for hook in (True, False):
+        label = f"{n}^3 {'with' if hook else 'without'} matvec_axpy_dot"
+        torch.cuda.synchronize()
+        k.reset_launch_counts()
+        res, iters = solve(hook)
+        xhi, xlo = res.x
+        sq, probe = None, probe_of(torch, xhi)
+        if hook:
+            _, sq = port.residual_norm_sq(op, probe.reshape(-1),
+                                          bhi.reshape(-1))
+        torch.cuda.synchronize()
+        counts = k.launch_counts()
+        rel, err, r_hi = f64_check(torch, op, xhi, xlo, bhi, probe)
+        del probe
+        log(f"{label}: passes {res.passes}, PCG iterations {iters}, df rel "
+            f"{res.rnorm / res.rnorm0:.3e}, f64 rel {rel:.3e}, max|x-1| "
+            f"{err:.3e}; launches: axpy_mv_dot "
+            f"{counts.get('stencil3d_axpy_mv_dot', 0)}, mv_dot "
+            f"{counts.get('stencil3d_apply[mv_dot]', 0)}, mv_norm "
+            f"{counts.get('stencil3d_mv_norm', 0)}")
+        expect_solution(label, res, rel, err)
+        j, md = (counts.get("stencil3d_axpy_mv_dot", 0),
+                 counts.get("stencil3d_apply[mv_dot]", 0))
+        if (j, md) != ((sum(iters), 0) if hook else (0, sum(iters))):
+            raise AssertionError(f"{label}: {j} launches of J and {md} of "
+                                 f"mv_dot in {sum(iters)} PCG iterations")
+        if hook:
+            got = float(sq) ** 0.5
+            log(f"residual_norm_sq (kernel K) on x + 1e-3 noise: {got:.6e}, "
+                f"f64 ||b - A x|| of the same {r_hi:.6e}")
+            if not abs(got - r_hi) <= 1e-3 * r_hi:
+                raise AssertionError("kernel K's norm is off the f64 residual")
+            launches = {m: counts[m] for m in ("stencil3d_axpy_mv_dot",
+                                               "stencil3d_mv_norm")}
+        out[hook] = iters
+        del res, xhi, xlo
+    if out[True] != out[False]:
+        raise AssertionError(f"PCG iterations differ: {out[True]} with the "
+                             f"hook, {out[False]} without")
+    times = {True: [], False: []}
+    for hook in (True, False, False, True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve(hook)
+        torch.cuda.synchronize()
+        times[hook].append(time.perf_counter() - t0)
+    log(f"{n}^3 solve, median of 3 taken in turns: with matvec_axpy_dot "
+        f"{statistics.median(times[True]) * 1e3:.1f} ms "
+        f"{[round(t * 1e3, 1) for t in times[True]]}, without "
+        f"{statistics.median(times[False]) * 1e3:.1f} ms "
+        f"{[round(t * 1e3, 1) for t in times[False]]}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def northstar2d_phase(torch, port, dev) -> dict:
+    """The 2D north-star.  At 2048^2 ``df_northstar_fused`` with its
+    defaults (W-cycle), once: a W-cycle visits the coarsest of 10 levels
+    256 times and the solve is bound by those launches.  At 8192^2 (12
+    levels) the defaults, a W-cycle in bf16 by the auto rule, take about a
+    minute and a half of launches (92.5 s measured on an H100, 2 passes, to
+    6.2e-9), and ``cycle='v'`` does not converge under the bf16 cycle (in
+    2D the sweeps outside kernel E round every operation to bf16; the JAX
+    package degrades the same way).  So the full width runs the same
+    refinement through ``df_iterative_refinement`` around PCG with one f32
+    V-cycle, counted and then timed 3 times.  Then kernel L beside the f64
+    residual, ``device_iterative_refinement`` (f64 residual on the card)
+    around the same PCG, and the 2D double-float residual on the card
+    against the CPU.  Returns kernel L's launches in the counted window."""
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import build
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers import df64
+
+    launches = {}
+    for n, how, reps in ((2048, "df_northstar_fused, defaults (cycle='w')", 0),
+                         (8192, "df_iterative_refinement around PCG with an "
+                          "f32 V-cycle", 3)):
+        op = port.poisson2d(n, n)
+        bhi = op.mv(torch.ones((n, n), dtype=torch.float32, device=dev))
+        b_df = (bhi, torch.zeros_like(bhi))
+        label = f"2D {n}^2 {how}"
+        M = port.mg_preconditioner(op, cycle="v", dtype=torch.float32)
+        iters = []
+
+        def solve_f32(r):
+            res = port.cg(op.mv, r, rtol=1e-4, maxiter=40, precond=M)
+            iters.append(res.iters)
+            return res.x
+
+        def solve():
+            if n == 2048:
+                return port.df_northstar_fused(op, b_df, rtol=1e-8,
+                                               inner_rtol=1e-4)
+            del iters[:]
+            res = port.df_iterative_refinement(op, None, solve_f32, rtol=1e-8,
+                                               b_df=b_df, return_host=False)
+            res.pcg_iters = list(iters)
+            return res
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = solve()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        xhi, xlo = res.x
+        probe = probe_of(torch, xhi)
+        _, sq = port.residual_norm_sq(op, probe.reshape(-1), bhi.reshape(-1))
+        torch.cuda.synchronize()
+        counts = build.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        rel, err, r_hi = f64_check(torch, op, xhi, xlo, bhi, probe)
+        del probe
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solve()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        times = times or [first_s]
+        log(f"{label}: passes {res.passes}, PCG iterations {res.pcg_iters}, "
+            f"df rel {res.rnorm / res.rnorm0:.3e}, f64 rel {rel:.3e}, "
+            f"max|x-1| {err:.3e}")
+        log(f"{label}: solve {statistics.median(times) * 1e3:.1f} ms median of "
+            f"{len(times)} {[round(t * 1e3, 1) for t in times]} (first run "
+            f"{first_s * 1e3:.1f} ms), peak memory "
+            f"{peak / 2**30:.2f} GiB, launches {counts}")
+        expect_solution(label, res, rel, err)
+        got = float(sq) ** 0.5
+        log(f"{label}: residual_norm_sq (kernel L) on x + 1e-3 noise "
+            f"{got:.6e}, f64 ||b - A x|| of the same {r_hi:.6e}")
+        if not abs(got - r_hi) <= 1e-3 * r_hi:
+            raise AssertionError(f"{label}: kernel L's norm is off the f64 "
+                                 f"residual")
+        if not (counts.get("stencil2d_apply[mv]", 0) > 0
+                and counts.get("stencil2d_mv_norm", 0) == 1):
+            raise AssertionError(f"{label}: launches {counts}")
+        launches["stencil2d_mv_norm"] = counts["stencil2d_mv_norm"]
+        del res, xhi, xlo
+        if n == 8192:
+            # the f64 cross-check of the df path: residual in f64 on the card
+            del iters[:]
+            t0 = time.perf_counter()
+            rd = port.device_iterative_refinement(op.mv, bhi.double(),
+                                                  solve_f32, rtol=1e-8)
+            log(f"2D {n}^2 device_iterative_refinement around the same PCG: "
+                f"passes {rd.passes}, PCG iterations {iters}, "
+                f"rel history {[f'{v:.2e}' for v in rd.rel_history]}, "
+                f"max|x-1| {abs(rd.x - 1.0).max():.3e}, "
+                f"{time.perf_counter() - t0:.2f} s (the f64 x comes back to "
+                f"the host)")
+            if not (rd.converged and rd.passes <= 3
+                    and abs(rd.x - 1.0).max() <= 1e-6):
+                raise AssertionError(f"{label}: device refinement failed")
+            del rd
+        del op, bhi, b_df, M
+        torch.cuda.empty_cache()
+
+    # the 2D df residual is plain tensor code: it must round on the card
+    # as on the CPU (no contraction of a*b+c)
+    m, n = 1024, 2048
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    parts = [torch.randn((m, n), generator=gen, device=dev) for _ in range(4)]
+    xhi, xlo, bhi, blo = (parts[0], parts[1] * 2.0**-26, parts[2],
+                          parts[3] * 2.0**-26)
+    for diag, off in ((4.0, -1.0), (5.0, -1.0), (7.0, -3.0)):
+        residual = df64.stencil2d_df_residual(m, n, diag, off)
+        on_card = residual((bhi, blo), (xhi, xlo))
+        on_cpu = residual((bhi.cpu(), blo.cpu()), (xhi.cpu(), xlo.cpu()))
+        for name, a, b in zip(("hi", "lo"), on_card, on_cpu):
+            check(torch, f"2D df residual {name} ({diag}, {off}) card "
+                  f"against CPU", a.cpu(), b, "bits")
+    log(f"2D df residual ({m}, {n}): the card's bits equal the CPU's")
+    return launches
+
+
+def cycle_precision_phase(torch, port, dev, card) -> None:
+    """One multigrid cycle with f32 and with bf16 arithmetic on an f32
+    residual, host clock around a synchronised call, median of 3 taken in
+    turns: the reading behind ``multigrid._BF16_CYCLE_BYTES`` (level-0 f32
+    bytes above which the auto precision is bf16)."""
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers import multigrid
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    rows = []
+    for dims, cycle, reps in (((128,) * 3, "w", 3), ((256,) * 3, "w", 3),
+                              ((2048,) * 2, "w", 2), ((8192,) * 2, "v", 3),
+                              ((8192,) * 2, "w", 1)):
+        op = (port.poisson2d if len(dims) == 2 else port.poisson3d)(*dims)
+        r = torch.randn(dims, generator=gen, device=dev)
+        Ms = {d: port.mg_preconditioner(op, cycle=cycle, dtype=d)
+              for d in (torch.float32, torch.bfloat16)}
+        for M in Ms.values():      # warm: allocator and kernels
+            if reps > 1:
+                M(r)
+        times = {d: [] for d in Ms}
+        for _ in range(reps):
+            for d, M in Ms.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                M(r)
+                torch.cuda.synchronize()
+                times[d].append((time.perf_counter() - t0) * 1e3)
+        f32, bf16 = (statistics.median(times[d]) for d in Ms)
+        mib = 4 * r.numel() / 2**20
+        rows.append(f"{'x'.join(map(str, dims))} {cycle} ({mib:.0f} MiB): f32 "
+                    f"{f32:.1f} ms, bf16 {bf16:.1f} ms, bf16/f32 "
+                    f"{bf16 / f32:.2f}")
+        del op, r, Ms
+        torch.cuda.empty_cache()
+    log(f"cycle precision ({card}; threshold "
+        f"{multigrid._BF16_CYCLE_BYTES / 2**20:.0f} MiB): " + "; ".join(rows))
+    # what the precision does to PCG in 2D, where the sweeps outside kernel
+    # E are plain tensor code that rounds every operation
+    rows = []
+    for n, cycles in ((2048, ("v", "w")), (8192, ("v",))):
+        op = port.poisson2d(n, n)
+        b = op.mv(torch.ones((n, n), device=dev))
+        b = b / torch.linalg.vector_norm(b)
+        for cycle in cycles:
+            for d, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+                M = port.mg_preconditioner(op, cycle=cycle, dtype=d)
+                res = port.cg(op.mv, b, rtol=1e-4, maxiter=40, precond=M)
+                rows.append(f"{n}^2 {cycle} {name}: {res.iters}"
+                            f"{'' if bool(res.converged) else ' (not converged)'}")
+        del op, b
+        torch.cuda.empty_cache()
+    log("2D PCG iterations to rtol 1e-4 (maxiter 40) by cycle and cycle "
+        "precision: " + "; ".join(rows))
 
 
 # ---------------------------------------------------------------------------
@@ -724,7 +1309,7 @@ def thesis_phase(torch, port, dev) -> dict:
         for m in names:
             total[m] += counts.get(m, 0)
         times = []
-        for _ in range(3):
+        for _ in range(1 if label.startswith("AM") else 3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             solve(op, b)
@@ -739,7 +1324,7 @@ def thesis_phase(torch, port, dev) -> dict:
             f"{float(res.rnorm / res.rnorm0):.3e}, f64 rel {rel:.3e}, "
             f"max|x-1| {err:.3e} ({tpu})")
         log(f"{label}: solve {statistics.median(times) * 1e3:.1f} ms median "
-            f"of 3 {[round(t * 1e3, 1) for t in times]} (first run "
+            f"of {len(times)} {[round(t * 1e3, 1) for t in times]} (first run "
             f"{first_s * 1e3:.1f} ms), peak memory {peak / 2**30:.2f} GiB")
         log(f"{label}: kernel launches per solve {counts}")
         if not res.converged or (res.certified is not None
@@ -752,6 +1337,68 @@ def thesis_phase(torch, port, dev) -> dict:
         del op, b, res
         torch.cuda.empty_cache()
     return total
+
+
+# ---------------------------------------------------------------------------
+# Inner-solve phase
+# ---------------------------------------------------------------------------
+
+def inner_phase(torch, port, dev) -> None:
+    """Multisplitting with the inner solves that need the multigrid cycle
+    on a strip, in f32, each run once and counted."""
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import build
+
+    a_cycle = ("stencil3d_apply[mv]", "stencil3d_apply[residual]",
+               "stencil3d_apply[jacobi]", "stencil3d_residual_restrict",
+               "stencil3d_prolong_jacobi")
+    configs = [
+        ("SM 3D 64^3, inner gmres", lambda: port.block_poisson3d(64, 64, 64),
+         lambda op, b: port.sm(op, b, rtol=1e-3), 1e-3,
+         ("stencil3d_apply[mv]", "mdot", "maxpy"),
+         "TPU v5e: ~105 sweeps / ~2100 inner iterations (BENCHMARKS.md:58)"),
+        ("SM 3D 64^3, inner gmres + pc='mg'",
+         lambda: port.block_poisson3d(64, 64, 64),
+         lambda op, b: port.sm(op, b, rtol=1e-3,
+                               inner=port.InnerConfig(method="gmres", pc="mg")),
+         1e-3, a_cycle + ("mdot", "maxpy"),
+         "TPU v5e: 51 sweeps / 510 inner iterations (BENCHMARKS.md:58)"),
+        ("SMSM_GLOBAL 2D 1024^2, inner cg + pc='mg'",
+         lambda: port.block_poisson2d(1024, 1024),
+         lambda op, b: port.smsm(
+             op, b, scope="global", s=4, rtol=1e-3, maxiter=2000,
+             inner=port.InnerConfig(method="cg", pc="mg")), 1e-3,
+         ("stencil2d_apply[mv]", "stencil2d_apply[spmm]", "maxpy"),
+         "no TPU run of this configuration is recorded; at 4096^2 it took "
+         "24 sweeps and 122 s on an H100"),
+    ]
+    for label, make, solve, rtol, need, tpu in configs:
+        op = make()
+        b = port.rhs_ones(op, torch.float32, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = solve(op, b)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        counts = build.launch_counts()
+        rel = residual_f64(torch, op, res.x, b)
+        log(f"{label}: {res.sweeps} sweeps, {res.cycles} cycles, "
+            f"{int(res.inner_iters)} inner iterations, {res.syncs} host "
+            f"syncs, converged {res.converged}; f32 rel "
+            f"{float(res.rnorm / res.rnorm0):.3e}, f64 rel {rel:.3e}, "
+            f"max|x-1| {float((res.x.double() - 1.0).abs().max()):.3e} ({tpu})")
+        log(f"{label}: solve {took:.2f} s (one run), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+            f"{counts}")
+        missing = [m for m in need if counts.get(m, 0) == 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels never launched: {missing}")
+        if not res.converged or not rel <= rtol:
+            raise AssertionError(f"{label}: converged {res.converged}, f64 "
+                                 f"relative residual {rel:.3e} (rtol {rtol})")
+        del op, b, res
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------

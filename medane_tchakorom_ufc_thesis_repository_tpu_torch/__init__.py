@@ -21,6 +21,15 @@ matrix is routed to ``DIA``, ``BSR``, ``DenseOp`` or ``AIJ``
 Jacobi, block-Jacobi (``solvers.bjacobi``) or smoothed-aggregation
 (``solvers.amg``) preconditioner.
 
+Slice 4, the stencil family's remaining paths: ``cg``'s
+``matvec_axpy_dot`` hook behind ``Stencil3D.axpy_mv_dot`` (PCG's direction
+update fused into the matvec), ``residual_norm_sq`` (``ops.fused``: the
+apply with a fused residual norm, 2D and 3D), multigrid and the
+north-star on a ``Stencil2D`` and with ``transfers='linear'``, the
+refinement loops ``iterative_refinement`` / ``device_iterative_refinement``
+/ ``df_iterative_refinement``, and the multisplitting inner methods
+``cg``, ``bicgstab``, ``ca_gmres`` and ``pc='mg'``.
+
 On the card every stencil apply, GMRES's Gram-Schmidt pair, and the CSR
 and block-ELL sparse products run hand-written CUDA kernels (``csrc/``,
 ``ops/``); on the CPU the kernels' plain PyTorch versions run.  Entry
@@ -72,6 +81,9 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.multisplitting impo
     sm,
     smsm,
 )
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops.fused import (
+    residual_norm_sq,
+)
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.chebyshev import (
     chebyshev,
 )
@@ -85,7 +97,10 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.multigrid import (
     mg_preconditioner,
 )
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.refine import (
+    device_iterative_refinement,
+    df_iterative_refinement,
     df_northstar_fused,
+    iterative_refinement,
 )
 
 __all__ = ["poisson2d", "poisson3d", "Stencil2D", "Stencil3D", "cg", "gmres",
@@ -96,4 +111,6 @@ __all__ = ["poisson2d", "poisson3d", "Stencil2D", "Stencil3D", "cg", "gmres",
            "multisplit_solve", "sm", "am", "smsm", "amam",
            "solve", "prepare", "lstsq", "PreparedSolver", "DenseOp", "ELL",
            "DIA", "BSR", "AIJ", "operator_from_coo", "from_scipy",
-           "as_routed_operator", "minres", "bicgstab", "default_device"]
+           "as_routed_operator", "minres", "bicgstab", "default_device",
+           "residual_norm_sq", "iterative_refinement",
+           "device_iterative_refinement", "df_iterative_refinement"]

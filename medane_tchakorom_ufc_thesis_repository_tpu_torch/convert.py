@@ -3,8 +3,8 @@
 The solvers have no weights: an operator (its shape and coefficients, or
 the arrays of an assembled format), a preconditioner's block inverses,
 the right-hand side (a double-float pair for the north-star, a stacked
-``(nblocks, block_size)`` array for multisplitting), a start and a
-result are the whole state.  These helpers take them from the JAX
+``(nblocks, block_size)`` array for multisplitting), a multigrid cycle's
+level description, a start and a result are the whole state.  These helpers take them from the JAX
 package's objects or from numpy arrays, and give a multisplitting result
 back as numpy, so that both packages work from the same numbers.
 Nothing here imports JAX: a JAX operator is read by its attributes, and
@@ -40,6 +40,12 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.bjacobi import (
 )
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.krylov import (
     KrylovResult,
+)
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.multigrid import (
+    MGLevels,
+)
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.refine import (
+    RefineResult,
 )
 
 # the port's operators, by the JAX class name, with the fields they take
@@ -178,3 +184,55 @@ def multisplit_result_to_numpy(res: MultisplitResult) -> dict:
                      if isinstance(getattr(res, f.name), torch.Tensor)
                      else getattr(res, f.name))
             for f in dataclasses.fields(res)}
+
+
+def mg_levels_from_fields(fields) -> MGLevels:
+    """The port's ``MGLevels`` from the JAX one (read by its attributes)
+    or from a mapping of its fields: ``dims`` (an integer array or nested
+    sequence, fine to coarse), ``diag``, ``off``, ``nu``, ``coarse_iters``,
+    ``cycle`` and ``transfers``."""
+    get = fields.get if isinstance(fields, dict) else (
+        lambda f, default=None: getattr(fields, f, default))
+    return MGLevels(
+        dims=tuple(tuple(int(n) for n in d) for d in get("dims")),
+        diag=float(get("diag")), off=float(get("off")), nu=int(get("nu")),
+        coarse_iters=int(get("coarse_iters")), cycle=str(get("cycle", "w")),
+        transfers=str(get("transfers", "pwc")))
+
+
+def mg_levels_to_fields(levels: MGLevels) -> dict:
+    """The fields of the port's ``MGLevels``, ``dims`` as an integer
+    array: what ``mg_levels_from_fields`` reads, and what builds the JAX
+    ``MGLevels`` with ``dims`` turned back into tuples."""
+    d = dataclasses.asdict(levels)
+    d["dims"] = np.asarray(levels.dims, np.int64)
+    return d
+
+
+def refine_result_from_numpy(fields: dict, device=None) -> RefineResult:
+    """The port's ``RefineResult`` from a mapping of the JAX
+    ``RefineResult``'s fields as numpy values.  ``x`` is the f64 solution
+    (kept as numpy) or a double-float ``(hi, lo)`` pair of f32 arrays,
+    which lands on ``device`` (None: the current CUDA device);
+    ``pcg_iters`` and ``syncs``, which JAX does not report, default to
+    empty and 0."""
+    x = fields["x"]
+    if isinstance(x, (tuple, list)):
+        x = df_pair_from_numpy(*x, device=device)
+    else:
+        x = np.asarray(x, np.float64)
+    return RefineResult(
+        x, int(fields["passes"]), [float(v) for v in fields["rel_history"]],
+        float(fields["rnorm"]), float(fields["rnorm0"]),
+        bool(fields["converged"]),
+        pcg_iters=[int(v) for v in fields.get("pcg_iters", ())],
+        syncs=int(fields.get("syncs", 0)))
+
+
+def refine_result_to_numpy(res: RefineResult) -> dict:
+    """Every field of the port's ``RefineResult``; a double-float ``x``
+    comes back as its ``(hi, lo)`` pair of numpy arrays."""
+    d = {f.name: getattr(res, f.name) for f in dataclasses.fields(res)}
+    if isinstance(res.x, (tuple, list)):
+        d["x"] = tuple(t.detach().cpu().numpy() for t in res.x)
+    return d

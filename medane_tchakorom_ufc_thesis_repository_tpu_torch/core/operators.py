@@ -68,9 +68,15 @@ class Stencil2D:
     def nnz(self) -> int:
         return 5 * self.m * self.n - 2 * self.m - 2 * self.n
 
+    @property
+    def dims(self) -> Tuple[int, int]:
+        return (self.m, self.n)
+
     def mv(self, x: torch.Tensor) -> torch.Tensor:
-        """``A x`` (kernel E with batch 1)."""
-        y = stencil2d_apply(x.reshape(1, self.m, self.n), diag=self.diag,
+        """``A x`` (kernel E) for the flat vector or the ``(m, n)`` grid,
+        or for a stack of either (leading axes are a batch of grids, as
+        under the JAX package's ``vmap``)."""
+        y = stencil2d_apply(x.reshape(-1, self.m, self.n), diag=self.diag,
                             off=self.off)
         return y.reshape(x.shape)
 
@@ -129,6 +135,16 @@ class Stencil3D:
         y, dot = k.stencil3d_apply(self._grid(x), kind="mv_dot",
                                    diag=self.diag, off=self.off)
         return y.reshape(x.shape), dot.to(x.dtype)
+
+    def axpy_mv_dot(self, z: torch.Tensor, p: torch.Tensor, beta):
+        """``(p', A p', p' · A p')`` with ``p' = z + beta p``: PCG's
+        direction update, matvec and direction dot in one pass (kernel J;
+        ``cg(matvec_axpy_dot=...)``).  ``beta`` is a number or a 0-d
+        tensor, read on the device.  The dot is an f32 sum (f64 for f64
+        grids)."""
+        pn, ap, dot = k.stencil3d_axpy_mv_dot(
+            self._grid(z), self._grid(p), beta, diag=self.diag, off=self.off)
+        return pn.reshape(z.shape), ap.reshape(z.shape), dot
 
     def residual(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """``b - A x``."""

@@ -1,17 +1,19 @@
 // Hopper (sm_90a) kernels for the matrix-free 3D 7-point Poisson stencil
-// family: the apply with its fused epilogues (kernel A), the multigrid
-// cycle's fused residual + restriction (kernel B) and its fused
-// prolongation + Jacobi sweep (kernel C).
+// family: the apply with its fused epilogues (kernel A, and as one more
+// kind the fused residual norm, kernel K), the multigrid cycle's fused
+// residual + restriction (kernel B) and its fused prolongation + Jacobi
+// sweep (kernel C), and PCG's fused direction update (kernel J).
 //
 // Plain C interface, bound with ctypes by ops/stencil3d.py.  Every entry
 // point launches on the stream it is given, allocates nothing, and returns
 // the cudaError_t of its launches (0 on success).  Grids are C-ordered
 // (nx, ny, nz) arrays, z contiguous; indices are 64-bit.  Storage is f32
-// or bf16 (dtype code 0 or 1); arithmetic is f32.  The taps are summed in
-// the order of the plain PyTorch versions beside the wrappers:
+// or bf16 (dtype code 0 or 1) with f32 arithmetic, or, for kernels A, J
+// and K, f64 (code 2) with f64 arithmetic.  The taps are summed in the
+// order of the plain PyTorch versions beside the wrappers:
 // diag*c + off*((((x- + x+) + y-) + y+) + (z- + z+)).
 //
-// All three are bound by memory bytes: a few flops per point against
+// All of them are bound by memory bytes: a few flops per point against
 // 4-12 bytes moved per point, far below the card's ~20 flop/byte balance
 // for f32 outside the tensor cores.
 
@@ -23,13 +25,28 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-enum { F32 = 0, BF16 = 1 };
-enum { MV = 0, MV_DOT = 1, RESIDUAL = 2, JACOBI = 3, JACOBI_DOT = 4, MV_CAST = 5 };
+enum { F32 = 0, BF16 = 1, F64 = 2 };
+enum { MV = 0, MV_DOT = 1, RESIDUAL = 2, JACOBI = 3, JACOBI_DOT = 4, MV_CAST = 5,
+       MV_NORM = 6 };
+
+// the arithmetic type of a storage type
+template <typename T> struct Compute { typedef float type; };
+template <> struct Compute<double> { typedef double type; };
 
 __device__ __forceinline__ float load(const float* p, int64_t i) { return p[i]; }
 __device__ __forceinline__ float load(const bf16* p, int64_t i) { return __bfloat162float(p[i]); }
+__device__ __forceinline__ double load(const double* p, int64_t i) { return p[i]; }
 __device__ __forceinline__ void store(float* p, int64_t i, float v) { p[i] = v; }
 __device__ __forceinline__ void store(bf16* p, int64_t i, float v) { p[i] = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store(double* p, int64_t i, double v) { p[i] = v; }
+
+// A c at one point from its six neighbours: the one expression every
+// kernel of the apply family evaluates, so that they round alike.
+template <typename TC>
+__device__ __forceinline__ TC stencil7(TC diag, TC off, TC c, TC xm, TC xp,
+                                       TC ym, TC yp, TC zm, TC zp) {
+    return diag * c + off * ((((xm + xp) + ym) + yp) + (zm + zp));
+}
 
 // ---------------------------------------------------------------------------
 // Kernel A: stencil3d_apply
@@ -51,8 +68,16 @@ __device__ __forceinline__ void store(bf16* p, int64_t i, float v) { p[i] = __fl
 // plane, no 16-byte vector loads, and the halo reads of the y and z
 // neighbours cost L1 bandwidth and instructions.
 //
-// The dot kinds (x.Ax for mv_dot, b.x' for jacobi_dot, both in f32 on the
-// f32 value before its cast to the output type) write one partial sum per
+// Kernel K is the kind mv_norm: it replaces
+// ops/fused_pallas.py:stencil3d_mv_norm_pallas (_mv_norm3d_kernel), y = A x
+// and ||b - y||^2 in one pass, for f32 or f64 x, b and y.  Being the same
+// instantiation pattern as mv, its y has mv's bits.  Bound: memory bytes,
+// reads of x and b and one write, 12 bytes a point in f32 (1.61 GB at
+// 512^3, 0.48 ms).
+//
+// The dot kinds (x.Ax for mv_dot, b.x' for jacobi_dot, both on the
+// arithmetic-type value before its cast to the output type; the sum of
+// (b - y)^2 for mv_norm) write one partial sum per
 // block; sum_partials adds the partials in a fixed order.  No float
 // atomics, so a dot is the same from run to run and CG's iteration counts
 // repeat.  (The Pallas kernel carried the sum across its sequential grid,
@@ -67,52 +92,62 @@ constexpr int FINISH_THREADS = 1024;
 
 // Sum of v over the block, valid in thread 0.  Fixed order: warp shuffles,
 // then the warp sums in warp order.
-template <int THREADS>
-__device__ __forceinline__ float block_sum(float v) {
-    __shared__ float warp_sums[THREADS / 32];
+template <int THREADS, typename T>
+__device__ __forceinline__ T block_sum(T v) {
+    __shared__ T warp_sums[THREADS / 32];
     const int lane = (threadIdx.x + threadIdx.y * blockDim.x) & 31;
     const int warp = (threadIdx.x + threadIdx.y * blockDim.x) >> 5;
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
     if (lane == 0) warp_sums[warp] = v;
     __syncthreads();
-    float s = 0.f;
+    T s = T(0);
     if (warp == 0) {
-        s = lane < THREADS / 32 ? warp_sums[lane] : 0.f;
+        s = lane < THREADS / 32 ? warp_sums[lane] : T(0);
         for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
     }
     return s;
 }
 
+__host__ __device__ constexpr bool has_sum(int kind) {
+    return kind == MV_DOT || kind == JACOBI_DOT || kind == MV_NORM;
+}
+
 template <int KIND, typename TX, typename TO>
 __global__ void __launch_bounds__(NT) apply_kernel(
     const TX* __restrict__ x, const TX* __restrict__ b, TO* __restrict__ y,
-    TO* __restrict__ y2, float* __restrict__ partials, int64_t nx,
-    int64_t ny, int64_t nz, float diag, float off, float omega) {
+    TO* __restrict__ y2, typename Compute<TX>::type* __restrict__ partials,
+    int64_t nx, int64_t ny, int64_t nz, typename Compute<TX>::type diag,
+    typename Compute<TX>::type off, typename Compute<TX>::type omega) {
+    typedef typename Compute<TX>::type TC;
     const int64_t k = (int64_t)blockIdx.x * BZ + threadIdx.x;
     const int64_t j = (int64_t)blockIdx.y * BY + threadIdx.y;
     const int64_t i0 = (int64_t)blockIdx.z * SLAB;
     const int64_t i1 = i0 + SLAB < nx ? i0 + SLAB : nx;
     const int64_t plane = ny * nz;
-    float acc = 0.f;
+    TC acc = TC(0);
     if (j < ny && k < nz) {
         int64_t idx = i0 * plane + j * nz + k;
-        float prev = i0 > 0 ? load(x, idx - plane) : 0.f;
-        float cur = load(x, idx);
+        TC prev = i0 > 0 ? load(x, idx - plane) : TC(0);
+        TC cur = load(x, idx);
         for (int64_t i = i0; i < i1; ++i, idx += plane) {
-            const float next = i + 1 < nx ? load(x, idx + plane) : 0.f;
-            const float yn = j > 0 ? load(x, idx - nz) : 0.f;
-            const float ys = j + 1 < ny ? load(x, idx + nz) : 0.f;
-            const float zw = k > 0 ? load(x, idx - 1) : 0.f;
-            const float ze = k + 1 < nz ? load(x, idx + 1) : 0.f;
-            float v = diag * cur + off * ((((prev + next) + yn) + ys) + (zw + ze));
+            const TC next = i + 1 < nx ? load(x, idx + plane) : TC(0);
+            const TC yn = j > 0 ? load(x, idx - nz) : TC(0);
+            const TC ys = j + 1 < ny ? load(x, idx + nz) : TC(0);
+            const TC zw = k > 0 ? load(x, idx - 1) : TC(0);
+            const TC ze = k + 1 < nz ? load(x, idx + 1) : TC(0);
+            TC v = stencil7(diag, off, cur, prev, next, yn, ys, zw, ze);
             if (KIND == RESIDUAL) {
                 v = load(b, idx) - v;
             } else if (KIND == JACOBI || KIND == JACOBI_DOT) {
-                const float bv = load(b, idx);
+                const TC bv = load(b, idx);
                 v = cur + omega * (bv - v);
                 if (KIND == JACOBI_DOT) acc += bv * v;
             } else if (KIND == MV_DOT) {
                 acc += cur * v;
+            } else if (KIND == MV_NORM) {
+                // x, b and y share one type here, so v is y's value
+                const TC d = load(b, idx) - v;
+                acc += d * d;
             }
             store(y, idx, v);
             if (KIND == MV_CAST) store(y2, idx, cur);
@@ -120,8 +155,8 @@ __global__ void __launch_bounds__(NT) apply_kernel(
             cur = next;
         }
     }
-    if (KIND == MV_DOT || KIND == JACOBI_DOT) {
-        const float s = block_sum<NT>(acc);
+    if (has_sum(KIND)) {
+        const TC s = block_sum<NT>(acc);
         if (threadIdx.x == 0 && threadIdx.y == 0)
             partials[blockIdx.x + (int64_t)gridDim.x *
                      (blockIdx.y + (int64_t)gridDim.y * blockIdx.z)] = s;
@@ -130,9 +165,10 @@ __global__ void __launch_bounds__(NT) apply_kernel(
 
 // One block adds the partials: thread t takes t, t + 1024, ... in order,
 // then the block sum.  Deterministic for a given partial count.
+template <typename T>
 __global__ void __launch_bounds__(FINISH_THREADS) sum_partials(
-    const float* __restrict__ partials, int64_t n, float* __restrict__ out) {
-    float s = 0.f;
+    const T* __restrict__ partials, int64_t n, T* __restrict__ out) {
+    T s = T(0);
     for (int64_t i = threadIdx.x; i < n; i += FINISH_THREADS) s += partials[i];
     s = block_sum<FINISH_THREADS>(s);
     if (threadIdx.x == 0) out[0] = s;
@@ -146,19 +182,20 @@ dim3 apply_grid(int64_t nx, int64_t ny, int64_t nz) {
 template <int KIND, typename TX, typename TO>
 cudaError_t launch_apply(const void* x, const void* b, void* y, void* y2,
                          void* partials, void* dot, int64_t nx, int64_t ny,
-                         int64_t nz, float diag, float off, float omega,
+                         int64_t nz, double diag, double off, double omega,
                          cudaStream_t stream) {
+    typedef typename Compute<TX>::type TC;
     const dim3 grid = apply_grid(nx, ny, nz);
     apply_kernel<KIND, TX, TO><<<grid, dim3(BZ, BY), 0, stream>>>(
         static_cast<const TX*>(x), static_cast<const TX*>(b), static_cast<TO*>(y),
-        static_cast<TO*>(y2), static_cast<float*>(partials), nx, ny, nz, diag,
-        off, omega);
+        static_cast<TO*>(y2), static_cast<TC*>(partials), nx, ny, nz, (TC)diag,
+        (TC)off, (TC)omega);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    if (KIND == MV_DOT || KIND == JACOBI_DOT) {
+    if (has_sum(KIND)) {
         const int64_t n = (int64_t)grid.x * grid.y * grid.z;
-        sum_partials<<<1, FINISH_THREADS, 0, stream>>>(
-            static_cast<const float*>(partials), n, static_cast<float*>(dot));
+        sum_partials<TC><<<1, FINISH_THREADS, 0, stream>>>(
+            static_cast<const TC*>(partials), n, static_cast<TC*>(dot));
         err = cudaGetLastError();
     }
     return err;
@@ -167,8 +204,8 @@ cudaError_t launch_apply(const void* x, const void* b, void* y, void* y2,
 template <typename TX, typename TO>
 cudaError_t dispatch_kind(int kind, const void* x, const void* b, void* y,
                           void* y2, void* partials, void* dot, int64_t nx,
-                          int64_t ny, int64_t nz, float diag, float off,
-                          float omega, cudaStream_t s) {
+                          int64_t ny, int64_t nz, double diag, double off,
+                          double omega, cudaStream_t s) {
     switch (kind) {
         case MV:
             return launch_apply<MV, TX, TO>(x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
@@ -185,6 +222,107 @@ cudaError_t dispatch_kind(int kind, const void* x, const void* b, void* y,
         default:
             return cudaErrorInvalidValue;
     }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel J: stencil3d_axpy_mv_dot
+//
+// Replaces ops/stencil_pallas.py:stencil3d_axpy_mv_dot_pallas
+// (_kernel3d_amvd): PCG's direction update, matvec and direction dot in one
+// pass, p' = z + beta p, ap = A p', dot = p' . ap, with beta read from
+// device memory (it is the solver's per-iteration scalar and never visits
+// the host).
+//
+// Bound: memory bytes, reads of z and p and writes of p' and ap: 16 bytes a
+// point in f32 (2.15 GB at 512^3, 0.64 ms at 3.35 TB/s), against the 20
+// bytes of an axpy pass followed by the mv_dot kind.
+//
+// Design: kernel A's walk (one thread per (y, z) column over a slab of x
+// planes, p' at x-1, x and x+1 in registers).  p' is never read back from
+// memory: a thread forms it from z and p at its own point and again at the
+// four in-plane neighbours, whose reads L1/L2 serve.  Every point's p' is
+// the one expression axpy(z, beta, p), product and sum each rounded on its
+// own (no FMA, whatever the compiler's contraction), so the p' a
+// neighbouring thread or block recomputes is the p' that was written, and
+// it has the bits of the two plain passes z + (beta * p).  Outside the grid
+// p' is 0 by the index tests, not by reading padded memory.  The apply is
+// stencil7, as in kernel A, and the dot's partials have kernel A's layout
+// and order: on the f32 p' the triple is what axpy + mv_dot gives.  With
+// bf16 storage p' stays f32 for the stencil and the dot and is rounded
+// only where it is stored, as in the Pallas kernel.  What the simple design
+// gives up: ten loads a point through the cache instead of a staged tile.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float axpy(float z, float beta, float p) {
+    return __fadd_rn(z, __fmul_rn(beta, p));
+}
+__device__ __forceinline__ double axpy(double z, double beta, double p) {
+    return __dadd_rn(z, __dmul_rn(beta, p));
+}
+
+// p' at the point of flat index q
+template <typename T, typename TC>
+__device__ __forceinline__ TC pn_at(const T* __restrict__ z,
+                                    const T* __restrict__ p, TC beta, int64_t q) {
+    return axpy(load(z, q), beta, load(p, q));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT) axpy_mv_dot_kernel(
+    const T* __restrict__ z, const T* __restrict__ p,
+    const typename Compute<T>::type* __restrict__ beta_ptr, T* __restrict__ pn,
+    T* __restrict__ ap, typename Compute<T>::type* __restrict__ partials,
+    int64_t nx, int64_t ny, int64_t nz, typename Compute<T>::type diag,
+    typename Compute<T>::type off) {
+    typedef typename Compute<T>::type TC;
+    const TC beta = beta_ptr[0];
+    const int64_t k = (int64_t)blockIdx.x * BZ + threadIdx.x;
+    const int64_t j = (int64_t)blockIdx.y * BY + threadIdx.y;
+    const int64_t i0 = (int64_t)blockIdx.z * SLAB;
+    const int64_t i1 = i0 + SLAB < nx ? i0 + SLAB : nx;
+    const int64_t plane = ny * nz;
+    TC acc = TC(0);
+    if (j < ny && k < nz) {
+        int64_t idx = i0 * plane + j * nz + k;
+        TC prev = i0 > 0 ? pn_at(z, p, beta, idx - plane) : TC(0);
+        TC cur = pn_at(z, p, beta, idx);
+        for (int64_t i = i0; i < i1; ++i, idx += plane) {
+            const TC next = i + 1 < nx ? pn_at(z, p, beta, idx + plane) : TC(0);
+            const TC yn = j > 0 ? pn_at(z, p, beta, idx - nz) : TC(0);
+            const TC ys = j + 1 < ny ? pn_at(z, p, beta, idx + nz) : TC(0);
+            const TC zw = k > 0 ? pn_at(z, p, beta, idx - 1) : TC(0);
+            const TC ze = k + 1 < nz ? pn_at(z, p, beta, idx + 1) : TC(0);
+            const TC v = stencil7(diag, off, cur, prev, next, yn, ys, zw, ze);
+            acc += cur * v;
+            store(pn, idx, cur);
+            store(ap, idx, v);
+            prev = cur;
+            cur = next;
+        }
+    }
+    const TC s = block_sum<NT>(acc);
+    if (threadIdx.x == 0 && threadIdx.y == 0)
+        partials[blockIdx.x + (int64_t)gridDim.x *
+                 (blockIdx.y + (int64_t)gridDim.y * blockIdx.z)] = s;
+}
+
+template <typename T>
+cudaError_t launch_axpy_mv_dot(const void* z, const void* p, const void* beta,
+                               void* pn, void* ap, void* partials, void* dot,
+                               int64_t nx, int64_t ny, int64_t nz, double diag,
+                               double off, cudaStream_t stream) {
+    typedef typename Compute<T>::type TC;
+    const dim3 grid = apply_grid(nx, ny, nz);
+    axpy_mv_dot_kernel<T><<<grid, dim3(BZ, BY), 0, stream>>>(
+        static_cast<const T*>(z), static_cast<const T*>(p),
+        static_cast<const TC*>(beta), static_cast<T*>(pn), static_cast<T*>(ap),
+        static_cast<TC*>(partials), nx, ny, nz, (TC)diag, (TC)off);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    sum_partials<TC><<<1, FINISH_THREADS, 0, stream>>>(
+        static_cast<const TC*>(partials),
+        (int64_t)grid.x * grid.y * grid.z, static_cast<TC*>(dot));
+    return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -317,22 +455,32 @@ const char* kernel_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Number of f32 partial sums the dot kinds of stencil3d_apply write.
+// Number of partial sums the kinds with a sum, and kernel J, write.
 int64_t stencil3d_apply_partials(int64_t nx, int64_t ny, int64_t nz) {
     const dim3 g = apply_grid(nx, ny, nz);
     return (int64_t)g.x * g.y * g.z;
 }
 
-// kind: 0 mv, 1 mv_dot, 2 residual, 3 jacobi, 4 jacobi_dot, 5 mv_cast.
-// b: the residual/Jacobi right-hand side (x's type) or null.  y2: the cast
-// copy of x for mv_cast, or null.  partials (stencil3d_apply_partials f32
-// values) and dot (one f32) for the dot kinds, or null.
+// kind: 0 mv, 1 mv_dot, 2 residual, 3 jacobi, 4 jacobi_dot, 5 mv_cast,
+// 6 mv_norm (kernel K).  b: the right-hand side of the residual, Jacobi and
+// mv_norm kinds (x's type) or null.  y2: the cast copy of x for mv_cast, or
+// null.  partials (stencil3d_apply_partials values) and dot (one value),
+// both of the arithmetic type (f32, or f64 for f64 storage), for the kinds
+// with a sum, or null.  f64 goes with f64 only; mv_norm takes one type for
+// x, b and y, f32 or f64.
 int stencil3d_apply(int kind, int x_dtype, int out_dtype, const void* x,
                     const void* b, void* y, void* y2, void* partials,
-                    void* dot, int64_t nx, int64_t ny, int64_t nz, float diag,
-                    float off, float omega, void* stream) {
+                    void* dot, int64_t nx, int64_t ny, int64_t nz, double diag,
+                    double off, double omega, void* stream) {
     if (nx < 1 || ny < 1 || nz < 1) return cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (kind == MV_NORM) {
+        if (x_dtype == F32 && out_dtype == F32)
+            return launch_apply<MV_NORM, float, float>(x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
+        if (x_dtype == F64 && out_dtype == F64)
+            return launch_apply<MV_NORM, double, double>(x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
+        return cudaErrorInvalidValue;
+    }
     if (x_dtype == F32 && out_dtype == F32)
         return dispatch_kind<float, float>(kind, x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
     if (x_dtype == F32 && out_dtype == BF16)
@@ -341,7 +489,31 @@ int stencil3d_apply(int kind, int x_dtype, int out_dtype, const void* x,
         return dispatch_kind<bf16, float>(kind, x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
     if (x_dtype == BF16 && out_dtype == BF16)
         return dispatch_kind<bf16, bf16>(kind, x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
+    if (x_dtype == F64 && out_dtype == F64)
+        return dispatch_kind<double, double>(kind, x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
     return cudaErrorInvalidValue;
+}
+
+// Kernel J.  z, p, pn, ap: (nx, ny, nz) of one type (f32, bf16 or f64); pn
+// and ap are new arrays that alias neither input.  beta, partials
+// (stencil3d_apply_partials values) and dot: device memory of the
+// arithmetic type (f32, or f64 for f64 storage).
+int stencil3d_axpy_mv_dot(int dtype, const void* z, const void* p,
+                          const void* beta, void* pn, void* ap, void* partials,
+                          void* dot, int64_t nx, int64_t ny, int64_t nz,
+                          double diag, double off, void* stream) {
+    if (nx < 1 || ny < 1 || nz < 1) return cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (dtype) {
+        case F32:
+            return launch_axpy_mv_dot<float>(z, p, beta, pn, ap, partials, dot, nx, ny, nz, diag, off, s);
+        case BF16:
+            return launch_axpy_mv_dot<bf16>(z, p, beta, pn, ap, partials, dot, nx, ny, nz, diag, off, s);
+        case F64:
+            return launch_axpy_mv_dot<double>(z, p, beta, pn, ap, partials, dot, nx, ny, nz, diag, off, s);
+        default:
+            return cudaErrorInvalidValue;
+    }
 }
 
 // x, b: fine (nx, ny, nz), even dims; rc: coarse (nx/2, ny/2, nz/2); all of

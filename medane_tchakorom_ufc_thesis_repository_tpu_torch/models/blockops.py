@@ -31,6 +31,10 @@ from typing import Optional, Tuple
 import torch
 
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.core.device import resolve
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.core.operators import (
+    Stencil2D,
+    Stencil3D,
+)
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops.stencil2d import (
     stencil2d_apply,
 )
@@ -63,6 +67,13 @@ class BlockOperator:
     def dtype(self) -> torch.dtype:
         # matrix-free: no stored values; torch's default float width
         return torch.get_default_dtype()
+
+    @property
+    def diag_mv_args(self):
+        """Per-block arrays of ``single_diag_mv``, stacked on a leading
+        block axis; None for the uniform stencils, whose blocks share one
+        operator."""
+        return None
 
     def single_diag_vector(self, args, n: int) -> torch.Tensor:
         """The diagonal of ``A_ii`` (constant for the Dirichlet stencils;
@@ -134,6 +145,11 @@ class StackedStencil2D(BlockOperator):
         """Analytic spectral bounds of ``A_ii`` (Chebyshev inner solves)."""
         return poisson_strip_eig_bounds_2d(self.rows, self.n, self.diag,
                                            self.off)
+
+    def diag_stencil_op(self) -> Stencil2D:
+        """``A_ii`` as a standalone stencil operator on the ``(rows, n)``
+        strip (inner ``pc='mg'``)."""
+        return Stencil2D(self.rows, self.n, self.diag, self.off)
 
     def _grid(self, x: torch.Tensor) -> torch.Tensor:
         return x.reshape(self.nblocks, self.rows, self.n)
@@ -207,6 +223,11 @@ class StackedStencil3D(BlockOperator):
     def diag_eig_bounds(self):
         return poisson_strip_eig_bounds_3d(self.rows, self.ny, self.nz,
                                            self.diag, self.off)
+
+    def diag_stencil_op(self) -> Stencil3D:
+        """``A_ii`` as a standalone stencil operator (see
+        ``StackedStencil2D``)."""
+        return Stencil3D(self.rows, self.ny, self.nz, self.diag, self.off)
 
     def _grid(self, x: torch.Tensor) -> torch.Tensor:
         return x.reshape(self.nblocks, self.rows, self.ny, self.nz)

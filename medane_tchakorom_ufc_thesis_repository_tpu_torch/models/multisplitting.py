@@ -62,11 +62,18 @@ class InnerConfig:
     ``inner1_``/``inner2_`` KSP (gmres, maxit 20, rtol 1e-3, pc none;
     ``config/default_run_variables:36-44``).
 
-    ``method``: 'gmres' or 'chebyshev' ('cg', 'bicgstab' and 'ca_gmres'
-    are not ported yet).  ``pc``: 'none' or 'jacobi' (left diagonal
-    scaling; 'bjacobi' and 'mg' are not ported yet).  ``basis``: 'native'
-    or 'bf16' Krylov-basis storage.  ``eig_min``/``eig_max``: Chebyshev's
-    spectral bounds (default: the stencil strips' analytic bounds).
+    ``method``: 'gmres', 'cg', 'bicgstab', 'chebyshev' or 'ca_gmres'
+    (s-step GMRES with ``s = restart``, one Gram matrix per cycle).
+    ``pc``: 'none', 'jacobi' (left diagonal scaling), 'mg' (one multigrid
+    cycle on the strip's diagonal block, ``solvers/multigrid.py``) or
+    'bjacobi' (block inverses of ``pc_block_size``; it belongs to the
+    stacked ELL/DIA/BSR operators, which are not ported, and raises).
+    With 'gmres' a pc is PETSc's default left preconditioning; 'cg' and
+    'bicgstab' take 'mg' as a true-residual preconditioner; 'chebyshev'
+    and 'ca_gmres' take none.  ``basis``: 'native' or 'bf16' Krylov-basis
+    storage.  ``eig_min``/``eig_max``: the spectral bounds of 'chebyshev'
+    and 'ca_gmres' (default: the operator's analytic ``diag_eig_bounds()``,
+    else a Lanczos estimate over the blocks).
     """
 
     restart: int = 30
@@ -76,6 +83,7 @@ class InnerConfig:
     orthog: str = "cgs2"
     method: str = "gmres"
     pc: str = "none"
+    pc_block_size: int = 64   # 'bjacobi' diagonal-sub-block size
     basis: str = "native"
     eig_min: Optional[float] = None
     eig_max: Optional[float] = None
@@ -130,10 +138,6 @@ class MultisplitResult:
 # Inner solve (one batched solve over the blocks)
 # ---------------------------------------------------------------------------
 
-_NOT_PORTED_METHODS = ("cg", "bicgstab", "ca_gmres")
-_NOT_PORTED_PCS = ("bjacobi", "mg")
-
-
 def _per_block(cfg, nb: int, what: str):
     """``(uniform_cfg, None)`` when one config applies to every block,
     ``(None, configs)`` when blocks differ (the reference's
@@ -155,65 +159,194 @@ def _make_inner(op: BlockOperator, cfg):
     uniform, per_block = _per_block(cfg, op.nblocks, "InnerConfig")
     if per_block is None:
         return _make_single_inner(op, uniform)
-    solves = [_make_single_inner(op, c) for c in per_block]
+    solves = [_make_single_inner(op, c, only_block=i)
+              for i, c in enumerate(per_block)]
 
     def run(rhs, x):
-        results = [solve(rhs[i:i + 1], x[i:i + 1])
-                   for i, solve in enumerate(solves)]
-        return krylov.KrylovResult(
-            x=torch.cat([r.x for r in results]),
-            iters=torch.cat([r.iters for r in results]),
-            resnorm=torch.cat([r.resnorm for r in results]),
-            resnorm0=torch.cat([r.resnorm0 for r in results]),
-            converged=torch.cat([r.converged for r in results]),
-            syncs=sum(r.syncs for r in results))
+        return _cat_results([solve(rhs[i:i + 1], x[i:i + 1])
+                             for i, solve in enumerate(solves)])
 
     return run
 
 
-def _make_single_inner(op: BlockOperator, cfg: InnerConfig):
+def _cat_results(results) -> krylov.KrylovResult:
+    """One ``KrylovResult`` over the systems of several batched ones, in
+    order."""
+    def cat(field):
+        return torch.cat([getattr(r, field) for r in results])
+
+    return krylov.KrylovResult(
+        x=cat("x"), iters=cat("iters"), resnorm=cat("resnorm"),
+        resnorm0=cat("resnorm0"), converged=cat("converged"),
+        syncs=sum(r.syncs for r in results))
+
+
+def _as_batch_of_one(r: krylov.KrylovResult) -> krylov.KrylovResult:
+    """A single-system result as a batch of one system."""
+    return krylov.KrylovResult(
+        x=r.x[None], iters=r.iters.reshape(1), resnorm=r.resnorm.reshape(1),
+        resnorm0=r.resnorm0.reshape(1), converged=r.converged.reshape(1),
+        syncs=r.syncs)
+
+
+def _block_args(args, i: int):
+    """Block ``i``'s slice of ``diag_mv_args`` (a tensor, or a tuple of
+    them, stacked on the block axis; None stays None)."""
+    if args is None:
+        return None
+    if isinstance(args, (tuple, list)):
+        return tuple(a[i] for a in args)
+    return args[i]
+
+
+def _lanczos_block_bounds(op: BlockOperator, method: str):
+    """The union over the blocks of each ``A_ii``'s Lanczos-estimated
+    spectral interval (PETSc's ``-ksp_chebyshev_esteig``): a wider
+    interval only slows Chebyshev, it never diverges it."""
+    import numpy as np
+
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.eigest import (
+        bounds_from_coeffs,
+        lanczos_coeffs,
+    )
+
+    args = op.diag_mv_args
+    if args is None:
+        raise ValueError(
+            f"{method} needs InnerConfig.eig_min/eig_max, analytic "
+            f"diag_eig_bounds(), or per-block diag_mv_args for Lanczos "
+            f"estimation")
+    bs = op.block_size
+    m = max(1, min(30, bs))
+    v0 = np.random.default_rng(7).standard_normal(bs)
+    leaf = args[0] if isinstance(args, (tuple, list)) else args
+    v0 = torch.from_numpy(v0 / np.linalg.norm(v0)).to(device=leaf.device,
+                                                     dtype=op.dtype)
+    eps = float(torch.finfo(op.dtype).eps)
+    per = []
+    for i in range(op.nblocks):
+        a = _block_args(args, i)
+        alphas, betas = lanczos_coeffs(
+            lambda u, a=a: op.single_diag_mv(a, u), v0, m)
+        per.append(bounds_from_coeffs(alphas.cpu().numpy(),
+                                      betas.cpu().numpy(), eps=eps))
+    return min(p[0] for p in per), max(p[1] for p in per)
+
+
+def _make_single_inner(op: BlockOperator, cfg: InnerConfig,
+                       only_block: Optional[int] = None):
     """The batched solve ``(rhs, x) -> KrylovResult`` of one config over
-    a stack of blocks, each block its own system with ``A_ii``."""
-    if cfg.method not in ("gmres", "chebyshev") + _NOT_PORTED_METHODS:
+    a stack of blocks, each block its own system with ``A_ii``: every
+    block of ``op``, or with ``only_block`` that block alone (``rhs`` and
+    ``x`` are then ``(1, bs)``)."""
+    if cfg.method not in ("gmres", "cg", "bicgstab", "chebyshev", "ca_gmres"):
         raise ValueError(f"unknown inner method {cfg.method!r}")
-    if cfg.pc not in ("none", "jacobi") + _NOT_PORTED_PCS:
+    if cfg.pc not in ("none", "jacobi", "bjacobi", "mg"):
         raise ValueError(f"unknown inner pc {cfg.pc!r}")
-    if cfg.method in _NOT_PORTED_METHODS:
-        raise NotImplementedError(
-            f"inner method {cfg.method!r} is not ported yet (ROADMAP "
-            f"Queue 1, item 8)")
-    if cfg.pc in _NOT_PORTED_PCS:
-        raise NotImplementedError(
-            f"inner pc {cfg.pc!r} is not ported yet (ROADMAP Queue 1, "
-            f"item 9)")
     cfg.basis_dtype()   # rejects an unknown basis now, not mid-solve
 
+    mg_M = None
+    if cfg.pc == "mg":
+        # multigrid on the strip's diagonal block: A_ii is a Dirichlet
+        # Poisson operator on the strip
+        diag_op_fn = getattr(op, "diag_stencil_op", None)
+        if diag_op_fn is None:
+            raise ValueError(f"pc='mg' needs a stencil-family block operator "
+                             f"(got {type(op).__name__})")
+        mg_M = _stacked_cycle(diag_op_fn())
+
     bounds = None
-    if cfg.method == "chebyshev":
+    if cfg.method in ("chebyshev", "ca_gmres"):
+        # both need the spectral interval (the Chebyshev iteration, the
+        # Newton basis's shifts)
         if cfg.pc != "none":
-            raise ValueError("chebyshev inner solve does not compose with pc")
+            raise ValueError(
+                f"{cfg.method} inner solve does not compose with pc")
         if cfg.eig_min is not None and cfg.eig_max is not None:
             bounds = (cfg.eig_min, cfg.eig_max)
-        else:
+        elif hasattr(op, "diag_eig_bounds"):
             bounds = op.diag_eig_bounds()
+        else:
+            bounds = _lanczos_block_bounds(op, cfg.method)
+    if cfg.pc == "bjacobi":
+        raise NotImplementedError(
+            "inner pc='bjacobi' needs a sparse-family stacked operator "
+            "(stacked ELL/DIA/BSR, not ported yet: ROADMAP Queue 1, item 9); "
+            f"got {type(op).__name__}; stencil strips use pc='mg'")
+
+    blocks = range(op.nblocks) if only_block is None else [only_block]
+
+    def one_mv(row: int):
+        """``A_ii`` of the block in row ``row`` of ``rhs``, on one vector."""
+        a = _block_args(op.diag_mv_args, blocks[row])
+        return lambda v: op.single_diag_mv(a, v)
+
+    block_mv = op.diag_mv if only_block is None else one_mv(0)
 
     def solve(rhs, x):
-        mv = op.diag_mv
+        mv = block_mv
         if cfg.pc == "jacobi":
             # left diagonal preconditioning: (D^-1 A) x = D^-1 b, tested in
             # the preconditioned norm (PETSc's default)
             dinv = 1.0 / op.single_diag_vector(None, rhs.shape[-1]).to(rhs)
-            mv = lambda v: dinv * op.diag_mv(v)   # noqa: E731
+            mv = lambda v: dinv * block_mv(v)   # noqa: E731
             rhs = dinv * rhs
+        elif cfg.pc == "mg" and cfg.method == "gmres":
+            # left multigrid preconditioning (convergence in the
+            # preconditioned norm); CG and BiCGStab take mg_M as a
+            # true-residual preconditioner instead
+            mv = lambda v: mg_M(block_mv(v))    # noqa: E731
+            rhs = mg_M(rhs)
         if cfg.method == "chebyshev":
             return chebyshev(mv, rhs, x, lmin=bounds[0], lmax=bounds[1],
                              maxiter=cfg.maxiter, batched=True)
+        if cfg.method == "cg":
+            return krylov.cg(mv, rhs, x, maxiter=cfg.maxiter, rtol=cfg.rtol,
+                             atol=cfg.atol, precond=mg_M, batched=True)
+        if cfg.method == "bicgstab":
+            # mg enters as a right preconditioner (true-residual test);
+            # jacobi is already folded into mv and rhs
+            return krylov.bicgstab(mv, rhs, x, maxiter=cfg.maxiter,
+                                   rtol=cfg.rtol, atol=cfg.atol,
+                                   precond=mg_M, batched=True)
+        if cfg.method == "ca_gmres":
+            # s-step GMRES over the block spectrum, one Gram matrix per
+            # cfg.restart matvecs; one solve per block (ca_gmres takes one
+            # system)
+            from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.castep import (  # noqa: E501
+                ca_gmres,
+            )
+
+            return _cat_results([
+                _as_batch_of_one(ca_gmres(
+                    one_mv(i), rhs[i], x[i], s=cfg.restart,
+                    maxiter=cfg.maxiter, rtol=cfg.rtol, atol=cfg.atol,
+                    lmin=bounds[0], lmax=bounds[1], reductions="single"))
+                for i in range(rhs.shape[0])])
         return krylov.gmres(mv, rhs, x, restart=cfg.restart,
                             maxiter=cfg.maxiter, rtol=cfg.rtol,
                             atol=cfg.atol, orthog=cfg.orthog,
                             basis_dtype=cfg.basis_dtype())
 
     return solve
+
+
+def _stacked_cycle(diag_op):
+    """``M(r)`` for a stack ``r`` of ``(k, bs)`` strip residuals: one
+    multigrid cycle on each strip's ``A_ii``.  The 2D cycle takes the
+    stack as a batch of grids; the 3D kernels take one grid, so a 3D
+    stack runs one cycle per strip."""
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.core.operators import (
+        Stencil3D,
+    )
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.multigrid import (
+        mg_preconditioner,
+    )
+
+    M = mg_preconditioner(diag_op)
+    if not isinstance(diag_op, Stencil3D):
+        return M
+    return lambda r: torch.stack([M(ri) for ri in r]) if r.dim() > 1 else M(r)
 
 
 # ---------------------------------------------------------------------------

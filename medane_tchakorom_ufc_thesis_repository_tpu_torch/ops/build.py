@@ -52,8 +52,11 @@ SIGNATURES = {
         "kernel_error_string": ([_I], ctypes.c_char_p),
         "stencil3d_apply_partials": ([_I64, _I64, _I64], _I64),
         "stencil3d_apply": (
-            [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _F, _F, _F,
+            [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _D, _D, _D,
              _P], _I),
+        "stencil3d_axpy_mv_dot": (
+            [_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _D, _D, _P],
+            _I),
         "stencil3d_residual_restrict": (
             [_I, _P, _P, _P, _I64, _I64, _I64, _F, _F, _F, _P], _I),
         "stencil3d_prolong_jacobi": (
@@ -68,6 +71,9 @@ SIGNATURES = {
     "stencil2d": {
         "kernel_error_string": ([_I], ctypes.c_char_p),
         "stencil2d_apply": ([_I, _P, _P, _I64, _I64, _I64, _D, _D, _P], _I),
+        "stencil2d_mv_norm_partials": ([_I64, _I64], _I64),
+        "stencil2d_mv_norm": (
+            [_I, _P, _P, _P, _P, _P, _I64, _I64, _D, _D, _P], _I),
     },
     "mdot": {
         "kernel_error_string": ([_I], ctypes.c_char_p),

@@ -10,7 +10,8 @@ zeros: a single grid (``Stencil2D.mv``), the stack of multisplitting strips
 
 The wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  Storage and arithmetic are f32
-or f64 on both paths.  The taps are summed in one order everywhere, that of
+or f64 on both paths; bf16 storage (the level-0 applies of a bf16
+multigrid cycle) computes in f32 and rounds once, on both paths.  The taps are summed in one order everywhere, that of
 the JAX ``StackedStencil2D.diag_mv``: ``diag*c + off*(((n + s) + w) + e)``.
 Each launch adds one to ``launch_counts()["stencil2d_apply[mv]"]``, or to
 ``[spmm]`` when the batch is a basis panel (``panel=True``).
@@ -23,7 +24,7 @@ import torch.nn.functional as F
 
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import build
 
-_DTYPE_CODE = {torch.float32: 0, torch.float64: 2}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
 
 def _check(x: torch.Tensor) -> None:
@@ -40,11 +41,13 @@ def _check(x: torch.Tensor) -> None:
 def stencil2d_apply_plain(x: torch.Tensor, *, diag: float,
                           off: float) -> torch.Tensor:
     """Plain version of ``stencil2d_apply``: ``A x`` on each ``(m, n)``
-    grid of ``x``, zero outside it, in ``x``'s dtype."""
+    grid of ``x``, zero outside it, in ``x``'s dtype (bf16: computed in
+    f32 and rounded once)."""
     _check(x)
-    p = F.pad(x, (1, 1, 1, 1))
+    c = x.to(torch.promote_types(x.dtype, torch.float32))
+    p = F.pad(c, (1, 1, 1, 1))
     taps = ((p[:, :-2, 1:-1] + p[:, 2:, 1:-1]) + p[:, 1:-1, :-2]) + p[:, 1:-1, 2:]
-    return diag * x + off * taps
+    return (diag * c + off * taps).to(x.dtype)
 
 
 def stencil2d_apply(x: torch.Tensor, *, diag: float, off: float,

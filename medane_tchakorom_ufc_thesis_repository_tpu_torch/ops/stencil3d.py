@@ -1,8 +1,8 @@
 """The 3D 7-point stencil kernels: wrappers, plain versions, launch counts.
 
 Counterpart of the 3D half of the JAX package's ``ops/stencil_pallas.py``.
-Four hand-written CUDA kernels (``csrc/stencil3d.cu``,
-``csrc/df_residual.cu``) serve five wrappers:
+Five hand-written CUDA kernels (``csrc/stencil3d.cu``,
+``csrc/df_residual.cu``) serve six wrappers:
 
 * ``stencil3d_apply`` (kernel A): ``A x`` with the fused epilogues of
   kinds ``mv``, ``mv_dot``, ``residual``, ``jacobi`` and ``jacobi_dot``;
@@ -10,14 +10,20 @@ Four hand-written CUDA kernels (``csrc/stencil3d.cu``,
   written at a narrower type, the entry of a bf16 multigrid cycle;
 * ``stencil3d_residual_restrict`` (kernel B);
 * ``stencil3d_prolong_jacobi`` (kernel C);
-* ``stencil3d_df_residual`` (kernel D): double-float ``b - A x``.
+* ``stencil3d_df_residual`` (kernel D): double-float ``b - A x``;
+* ``stencil3d_axpy_mv_dot`` (kernel J): PCG's direction update fused
+  into the apply, ``(p', A p', p' · A p')`` with ``p' = z + beta p``.
+
+(Kernel K, the apply with the fused residual norm, is a further kind of
+kernel A; its wrapper ``stencil3d_mv_norm`` is in ``ops/fused.py``.)
 
 Each wrapper has a ``*_plain`` PyTorch version of the same function
 beside it.  A wrapper takes its plain version only for tensors on the
 CPU; for CUDA tensors it launches its kernel or raises.  Grids are
-contiguous ``(nx, ny, nz)`` tensors.  On the card storage is f32 or
-bf16 and the arithmetic is f32; the plain versions also take f64 and
-then compute in f64.  The taps are summed in one order everywhere:
+contiguous ``(nx, ny, nz)`` tensors.  Storage is f32 or bf16 with f32
+arithmetic; kernels A and J and the plain versions also take f64 and
+then compute in f64 (kernels B and C do not, on the card).  The taps are
+summed in one order everywhere:
 ``diag*c + off*((((x- + x+) + y-) + y+) + (z- + z+))``.
 
 Every kernel launch adds one to its entry in ``launch_counts()`` (the
@@ -38,8 +44,9 @@ KINDS = ("mv", "mv_dot", "residual", "jacobi", "jacobi_dot")
 _KIND_CODE = {"mv": 0, "mv_dot": 1, "residual": 2, "jacobi": 3,
               "jacobi_dot": 4, "mv_cast": 5}
 _WITH_RHS = ("residual", "jacobi", "jacobi_dot")
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_CPU_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+_CPU_DTYPES = tuple(_DTYPE_CODE)
+_NARROW_DTYPES = (torch.float32, torch.bfloat16)   # kernels B and C
 
 # the port's launch counts, shared by every wrapper (``ops/build.py``)
 launch_counts = build.launch_counts
@@ -67,11 +74,21 @@ def _check_grid(name: str, t: torch.Tensor, like: Optional[torch.Tensor] = None,
             raise ValueError(f"{name} is {t.dtype}, expected {like.dtype}")
 
 
-def _check_dtype(dtype: torch.dtype, cuda: bool) -> None:
-    allowed = tuple(_DTYPE_CODE) if cuda else _CPU_DTYPES
+def _check_dtype(dtype: torch.dtype, cuda: bool, f64: bool = False) -> None:
+    """``f64``: whether the CUDA kernel at hand computes in f64 too."""
+    allowed = _NARROW_DTYPES if cuda and not f64 else _CPU_DTYPES
     if dtype not in allowed:
-        where = "the CUDA kernels" if cuda else "the plain versions"
-        raise ValueError(f"{where} take {allowed}, got {dtype}")
+        where = "this CUDA kernel takes" if cuda else "the plain versions take"
+        raise ValueError(f"{where} {allowed}, got {dtype}")
+
+
+def _check_pair(xdt: torch.dtype, odt: torch.dtype, cuda: bool) -> None:
+    """Kernel A's storage types: f32 and bf16 mix, f64 goes with f64."""
+    _check_dtype(xdt, cuda, f64=True)
+    _check_dtype(odt, cuda, f64=True)
+    if cuda and (xdt == torch.float64) != (odt == torch.float64):
+        raise ValueError(f"on the card f64 goes with f64 only, got {xdt} "
+                         f"in and {odt} out")
 
 
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -158,12 +175,12 @@ def stencil3d_apply(x: torch.Tensor, *extras: torch.Tensor, kind: str,
     """Kernel A (replaces ``stencil_pallas.stencil3d_apply_pallas``).
     ``extras`` is ``(b,)`` for the residual and Jacobi kinds, of ``x``'s
     dtype; ``out_dtype`` (default ``x.dtype``) may differ.  The dot kinds
-    return ``(y, dot)`` with ``dot`` a 0-d f32 tensor."""
+    return ``(y, dot)`` with ``dot`` a 0-d f32 tensor (f64 grids sum in
+    f64 on the card and round the sum to f32)."""
     _check_apply(x, extras, kind, omega)
     odt = x.dtype if out_dtype is None else out_dtype
     cuda = build.on_cuda(x)
-    _check_dtype(x.dtype, cuda)
-    _check_dtype(odt, cuda)
+    _check_pair(x.dtype, odt, cuda)
     if not cuda:
         return stencil3d_apply_plain(x, *extras, kind=kind, diag=diag, off=off,
                                      omega=omega, out_dtype=out_dtype)
@@ -173,8 +190,9 @@ def stencil3d_apply(x: torch.Tensor, *extras: torch.Tensor, kind: str,
     partials = dot = None
     if kind.endswith("_dot"):
         n = lib.stencil3d_apply_partials(nx, ny, nz)
-        partials = torch.empty(n, dtype=torch.float32, device=x.device)
-        dot = torch.empty((), dtype=torch.float32, device=x.device)
+        cdt = _compute_dtype(x.dtype)
+        partials = torch.empty(n, dtype=cdt, device=x.device)
+        dot = torch.empty((), dtype=cdt, device=x.device)
     rc = lib.stencil3d_apply(
         _KIND_CODE[kind], _DTYPE_CODE[x.dtype], _DTYPE_CODE[odt], x.data_ptr(),
         extras[0].data_ptr() if extras else None, y.data_ptr(), None,
@@ -183,7 +201,7 @@ def stencil3d_apply(x: torch.Tensor, *extras: torch.Tensor, kind: str,
         0.0 if omega is None else omega, build.stream(x))
     build.check(lib, rc, f"stencil3d_apply[{kind}]")
     build.launches[f"stencil3d_apply[{kind}]"] += 1
-    return (y, dot) if dot is not None else y
+    return (y, dot.to(torch.float32)) if dot is not None else y
 
 
 # ---------------------------------------------------------------------------
@@ -207,8 +225,7 @@ def stencil3d_mv_cast(x: torch.Tensor, *, diag: float, off: float,
     writes at ``out_dtype``."""
     _check_grid("x", x)
     cuda = build.on_cuda(x)
-    _check_dtype(x.dtype, cuda)
-    _check_dtype(out_dtype, cuda)
+    _check_pair(x.dtype, out_dtype, cuda)
     if not cuda:
         return stencil3d_mv_cast_plain(x, diag=diag, off=off,
                                        out_dtype=out_dtype)
@@ -378,3 +395,68 @@ def stencil3d_df_residual(xhi, xlo, bhi, blo, *, diag: float,
     build.check(lib, rc, "stencil3d_df_residual")
     build.launches["stencil3d_df_residual"] += 1
     return rhi, rlo
+
+
+# ---------------------------------------------------------------------------
+# Kernel J: stencil3d_axpy_mv_dot
+# ---------------------------------------------------------------------------
+
+def _check_axpy(z: torch.Tensor, p: torch.Tensor, beta) -> torch.Tensor:
+    """Check the grids; return ``beta`` as a 0-d tensor of the arithmetic
+    type on ``z``'s device (a tensor stays on its device: no host read)."""
+    _check_grid("z", z)
+    _check_grid("p", p, like=z, shape=z.shape)
+    cdt = _compute_dtype(z.dtype)
+    if isinstance(beta, torch.Tensor):
+        if beta.numel() != 1:
+            raise ValueError(f"beta must be a scalar, got shape "
+                             f"{tuple(beta.shape)}")
+        if beta.device != z.device:
+            raise ValueError(f"beta is on {beta.device}, expected {z.device}")
+        return beta.reshape(()).to(cdt)
+    return torch.tensor(float(beta), dtype=cdt, device=z.device)
+
+
+def stencil3d_axpy_mv_dot_plain(z: torch.Tensor, p: torch.Tensor, beta, *,
+                                diag: float, off: float):
+    """Plain version of ``stencil3d_axpy_mv_dot``: ``p' = z + beta p`` in
+    the arithmetic type, product and sum each rounded on its own;
+    ``A p'`` and the dot ``p' · A p'`` from that unrounded ``p'``; ``p'``
+    and ``A p'`` come back in ``z``'s dtype, the dot (an f32 sum of f32
+    products, as every dot of the plain versions) in the arithmetic type:
+    f32, or f64 for f64 grids."""
+    beta = _check_axpy(z, p, beta)
+    _check_dtype(z.dtype, False)
+    cdt = beta.dtype
+    pn = z.to(cdt) + beta * p.to(cdt)
+    ap = _apply(pn, diag, off)
+    return pn.to(z.dtype), ap.to(z.dtype), _dot_f32(pn, ap).to(cdt)
+
+
+def stencil3d_axpy_mv_dot(z: torch.Tensor, p: torch.Tensor, beta, *,
+                          diag: float, off: float):
+    """Kernel J (replaces ``stencil_pallas.stencil3d_axpy_mv_dot_pallas``):
+    ``(p', A p', p' · A p')`` with ``p' = z + beta p`` in one pass over
+    ``z`` and ``p``.  ``beta`` is a number or a one-element tensor on
+    ``z``'s device, which the kernel reads from device memory.  ``p'`` and
+    ``A p'`` are new tensors in ``z``'s dtype (f32, bf16 or f64); the dot
+    is a 0-d tensor of the arithmetic type (f32, or f64 for f64 grids),
+    summed from per-block partials in a fixed order."""
+    beta = _check_axpy(z, p, beta)
+    cuda = build.on_cuda(z)
+    _check_dtype(z.dtype, cuda, f64=True)
+    if not cuda:
+        return stencil3d_axpy_mv_dot_plain(z, p, beta, diag=diag, off=off)
+    nx, ny, nz = z.shape
+    lib = build.load("stencil3d")
+    pn, ap = torch.empty_like(z), torch.empty_like(z)
+    partials = torch.empty(lib.stencil3d_apply_partials(nx, ny, nz),
+                           dtype=beta.dtype, device=z.device)
+    dot = torch.empty((), dtype=beta.dtype, device=z.device)
+    rc = lib.stencil3d_axpy_mv_dot(
+        _DTYPE_CODE[z.dtype], z.data_ptr(), p.data_ptr(), beta.data_ptr(),
+        pn.data_ptr(), ap.data_ptr(), partials.data_ptr(), dot.data_ptr(), nx,
+        ny, nz, diag, off, build.stream(z))
+    build.check(lib, rc, "stencil3d_axpy_mv_dot")
+    build.launches["stencil3d_axpy_mv_dot"] += 1
+    return pn, ap, dot

@@ -74,6 +74,31 @@ def chebyshev(
                         converged=rnorm <= rtol * rnorm0)
 
 
+def estimate_eig_bounds(matvec: Callable, n: int,
+                        dtype: torch.dtype = torch.float32, iters: int = 30,
+                        seed: int = 0, safety: float = 1.05, device=None):
+    """Power-iteration estimate of ``lmax`` (inflated by ``safety``) with
+    ``lmin = lmax / 30``: the usual smoother heuristic when analytic
+    bounds are unavailable (general DIA/ELL operators).  The start vector
+    is drawn by ``torch.randn`` from a generator seeded with ``seed`` on
+    ``device`` (None: the current CUDA device); JAX draws other numbers
+    from the same seed, so the two estimates agree only as estimates."""
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.core.device import (
+        resolve,
+    )
+
+    device = resolve(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    v = torch.randn(n, generator=gen, dtype=dtype, device=device)
+    v = v / torch.linalg.vector_norm(v)
+    for _ in range(iters):
+        w = matvec(v)
+        v = w / torch.linalg.vector_norm(w)
+    lmax = float(torch.dot(v, matvec(v)) / torch.dot(v, v)) * safety
+    return lmax / 30.0, lmax
+
+
 def poisson_strip_eig_bounds_2d(rows: int, n: int, diag: float = 4.0,
                                 off: float = -1.0):
     """Analytic spectral bounds of the Dirichlet 5-point strip operator

@@ -1,15 +1,16 @@
 """Double-float (two-f32) arithmetic for f64-accurate residuals.
 
-Port of the JAX package's ``solvers/df64.py`` (3D only).  A value is an
+Port of the JAX package's ``solvers/df64.py``.  A value is an
 unevaluated sum ``hi + lo`` of two f32 tensors (~2^-48 relative
 precision), and every addition goes through an error-free transformation
 (Knuth's two-sum).  Refinement needs only its residual ``r = b - A x``
 this accurate; the solves stay in f32.
 
 The operation order of every function here is the JAX package's, so the
-same f32 inputs give the same bits on the CPU.  On the card the residual
-is kernel D (``ops/stencil3d.stencil3d_df_residual``), which follows
-``_df_residual_core_3d`` step for step; the rest stays plain PyTorch,
+same f32 inputs give the same bits on the CPU.  On the card the 3D
+residual is kernel D (``ops/stencil3d.stencil3d_df_residual``), which
+follows ``_df_residual_core_3d`` step for step; the rest, the 2D residual
+included (plain array code in the JAX package too), stays plain PyTorch,
 whose elementwise kernels round every operation on its own.
 """
 
@@ -19,6 +20,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.core.device import resolve
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import stencil3d
@@ -29,9 +31,15 @@ DF = Tuple[torch.Tensor, torch.Tensor]  # (hi, lo), value = hi + lo
 _EXACT_SCALES = (1.0, 2.0, 4.0, 0.5, 0.25)
 
 
-def scaled_norm(x: torch.Tensor) -> torch.Tensor:
+def scaled_norm(x: torch.Tensor, axes=None) -> torch.Tensor:
     """f32-safe 2-norm (0-d tensor): scale by the max first, since the
-    squares of ~1e-11 values underflow the f32 range."""
+    squares of ~1e-11 values underflow the f32 range.  ``axes`` names the
+    mesh axes of the JAX package's sharded form; this port runs on one
+    device, so only None is taken."""
+    if axes is not None:
+        raise NotImplementedError(
+            "scaled_norm over mesh axes belongs to the sharded solvers "
+            "(parallel/), which are not ported")
     m = torch.clamp_min(torch.amax(torch.abs(x)), 1e-30)
     ss = torch.sum(torch.square(x / m))
     return m * torch.sqrt(ss)
@@ -81,6 +89,11 @@ def df_add_f32(a: DF, b) -> DF:
 
 def df_neg(a: DF) -> DF:
     return -a[0], -a[1]
+
+
+def df_scale_pow2(a: DF, c: float) -> DF:
+    """Multiply by a power of two (exact in both components)."""
+    return a[0] * c, a[1] * c
 
 
 def df_mul_f32(a: DF, s) -> DF:
@@ -137,6 +150,35 @@ def _df_combine(hi, lo, coeff: float) -> DF:
     return df_add_f32(d, coeff * lo)
 
 
+def stencil2d_df_residual(m: int, n: int, diag: float, off: float):
+    """Return ``residual((bhi, blo), (xhi, xlo)) -> (rhi, rlo)``, the
+    double-float ``b - A x`` of the 2D 5-point stencil on grid-shaped
+    ``(m, n)`` f32 components, in the JAX package's operation order (same
+    bits on the CPU)."""
+
+    def residual(b: DF, x: DF) -> DF:
+        xhi, xlo = (t.reshape(m, n) for t in x)
+        bhi, blo = (t.reshape(m, n) for t in b)
+
+        def taps(g):
+            p = F.pad(g, (1, 1, 1, 1))
+            return p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:]
+
+        # neighbour sum: a two-sum tree on hi, plain f32 on lo
+        p = F.pad(xhi, (1, 1, 1, 1))
+        s1, e1 = two_sum(p[:-2, 1:-1], p[2:, 1:-1])
+        s2, e2 = two_sum(p[1:-1, :-2], p[1:-1, 2:])
+        nh, e3 = two_sum(s1, s2)
+        nl = (e1 + e2 + e3) + taps(xlo)
+        ndf = _df_combine(nh, nl, off)
+        ddf = _int_coeff_mul(xhi, diag)
+        ddf = df_add_f32(ddf, diag * xlo)
+        ax = df_add(ddf, ndf)
+        return df_add((bhi, blo), df_neg(ax))
+
+    return residual
+
+
 def _df_residual_core_3d(phi, plo, bhi_s, blo_s, diag: float, off: float) -> DF:
     """The 3D EFT residual tree on zero-padded (nx+2, ny+2, nz+2) hi/lo
     windows against the unpadded b components."""
@@ -177,11 +219,16 @@ def stencil3d_df_residual(nx: int, ny: int, nz: int, diag: float, off: float):
 
 
 def df_residual_for(op):
-    """The double-float residual function of a ``Stencil3D`` operator."""
+    """The double-float residual function of a ``Stencil2D`` or
+    ``Stencil3D`` operator."""
     from medane_tchakorom_ufc_thesis_repository_tpu_torch.core.operators import (
+        Stencil2D,
         Stencil3D,
     )
 
+    if isinstance(op, Stencil2D):
+        return stencil2d_df_residual(op.m, op.n, op.diag, op.off)
     if isinstance(op, Stencil3D):
         return stencil3d_df_residual(op.nx, op.ny, op.nz, op.diag, op.off)
-    raise TypeError(f"df residual supports Stencil3D, got {type(op).__name__}")
+    raise TypeError(f"df residual supports Stencil2D/Stencil3D, got "
+                    f"{type(op).__name__}")

@@ -94,6 +94,7 @@ def cg(
     divtol: float = 1e5,
     matvec_dot: Optional[Callable] = None,
     precond_dot: Optional[Callable] = None,
+    matvec_axpy_dot: Optional[Callable] = None,
     batched: bool = False,
 ) -> KrylovResult:
     """Preconditioned CG for SPD systems, stopping on the TRUE residual
@@ -109,13 +110,20 @@ def cg(
     ``matvec_dot``: optional fused ``p -> (A p, p · A p)``
     (``Stencil3D.mv_dot``).  ``precond_dot``: optional fused
     ``r -> (z, r · z)`` (``mg_preconditioner(op, return_rdot=True)``);
-    it takes precedence over ``precond``.  ``divtol``: stop, not
+    it takes precedence over ``precond``.  ``matvec_axpy_dot``: optional
+    fused ``(z, p, beta) -> (p', A p', p' · A p')`` with ``p' = z + beta p``
+    (``Stencil3D.axpy_mv_dot``): the direction update rides the matvec's
+    pass; it takes precedence over ``matvec_dot`` for the direction
+    matvec, and serves one system only.  ``beta`` reaches it as a 0-d
+    tensor on the device: the hook adds no host read.  ``divtol``: stop, not
     converged, once the residual exceeds ``divtol * rnorm0`` (0
     disables).  The preconditioner runs at the start of each iteration,
     so the last iteration skips a dead apply; ``beta`` and ``alpha`` are
     guarded against zero denominators as in the JAX package, so the
     iteration counts match it.
     """
+    if batched and matvec_axpy_dot is not None:
+        raise ValueError("matvec_axpy_dot serves one system, not a batch")
     dtype = b.dtype
     dot, col, commit = _batch_ops(batched)
     x, r, rs, rn0, tol = _start(matvec, b, x0, rnorm0, rtol, atol, dot)
@@ -137,12 +145,16 @@ def cg(
             z = r if precond is None else precond(r)
             rz_new = dot(r, z)
         beta = torch.zeros_like(rz) if trips == 0 else _ratio(rz_new, rz)
-        p_new = z + col(beta) * p
-        if matvec_dot is not None:
-            ap, pap = matvec_dot(p_new)
+        if matvec_axpy_dot is not None:
+            p_new, ap, pap = matvec_axpy_dot(z, p, beta)
+            pap = pap.to(dtype)
         else:
-            ap = matvec(p_new)
-            pap = dot(p_new, ap)
+            p_new = z + col(beta) * p
+            if matvec_dot is not None:
+                ap, pap = matvec_dot(p_new)
+            else:
+                ap = matvec(p_new)
+                pap = dot(p_new, ap)
         alpha = col(_ratio(rz_new, pap))
         r_new = r - alpha * ap
         x = commit(live, x + alpha * p_new, x)

@@ -1,7 +1,12 @@
-"""Double-float iterative refinement: the 3D Poisson north-star solve
-(port of the JAX package's ``solvers/refine.py``).
+"""Mixed-precision iterative refinement: the 2D and 3D Poisson north-star
+solves (port of the JAX package's ``solvers/refine.py``).
 
-Each pass solves the correction problem in f32 with W-cycle-
+Three loops share one idea, an f32 device solve of the correction
+problem around a residual of f64 accuracy: ``iterative_refinement`` (f64
+residual on the host, in numpy), ``device_iterative_refinement`` (f64
+residual on the device) and the double-float pair
+``df_iterative_refinement`` / ``df_northstar_fused`` (no f64 on the
+device at all).  In the north-star each pass solves the correction problem in f32 with W-cycle-
 preconditioned CG, adds the correction to a double-float (two-f32) x,
 and recomputes the true residual in double-float (``solvers/df64.py``),
 until ``||b - A x|| <= rtol ||b||``.  JAX runs the pass loop as one
@@ -37,6 +42,87 @@ class RefineResult:
     converged: bool
     pcg_iters: List[int] = dataclasses.field(default_factory=list)
     syncs: int = 0             # host reads of device values
+
+
+def iterative_refinement(
+    solve_f32: Callable,
+    mv_f64: Callable,
+    b,
+    *,
+    rtol: float = 1e-8,
+    max_passes: int = 6,
+    device=None,
+) -> RefineResult:
+    """Drive ``solve_f32`` to f64 accuracy by refinement with the residual
+    on the host.  ``solve_f32(r32) -> d32`` is any device solve taking and
+    returning flat f32 tensors on ``device`` (None: the current CUDA
+    device); ``mv_f64`` is the exact operator in f64 on numpy arrays
+    (``stencil2d_mv_np``, ``stencil3d_mv_np``); ``b`` the f64 right-hand
+    side."""
+    device = resolve(device)
+    b = np.asarray(b, np.float64)
+    rnorm0 = float(np.linalg.norm(b))
+    if rnorm0 == 0.0:
+        return RefineResult(np.zeros_like(b), 0, [], 0.0, 0.0, True)
+    x = np.zeros_like(b)
+    history: List[float] = []
+    syncs = 0
+    for p in range(max_passes + 1):
+        r = b - mv_f64(x)
+        rnorm = float(np.linalg.norm(r))
+        history.append(rnorm / rnorm0)
+        if history[-1] <= rtol or p == max_passes:
+            break
+        # scale the correction problem to O(1): the whole f32 range
+        # serves the inner solve
+        d32 = solve_f32(torch.from_numpy((r / rnorm).astype(np.float32))
+                        .to(device))
+        x = x + rnorm * d32.detach().cpu().numpy().astype(np.float64)
+        syncs += 1
+    return RefineResult(x, len(history) - 1, history, rnorm, rnorm0,
+                        history[-1] <= rtol, syncs=syncs)
+
+
+def device_iterative_refinement(
+    matvec: Callable,
+    b64,
+    solve_f32: Callable,
+    *,
+    rtol: float = 1e-8,
+    max_passes: int = 6,
+    device=None,
+) -> RefineResult:
+    """Refinement with the f64 residual computed on the device: only
+    scalars cross to the host (one norm per pass).  ``matvec`` must
+    evaluate in the dtype of its argument, f32 and f64 alike (true of the
+    matrix-free stencils); ``b64`` is the f64 right-hand side, a numpy
+    array or a tensor, of any shape ``matvec`` accepts.  ``RefineResult.x``
+    is an f64 numpy array."""
+    if isinstance(b64, torch.Tensor):
+        b64 = b64.to(torch.float64)
+    else:
+        b64 = torch.from_numpy(np.array(b64, dtype=np.float64)).to(
+            resolve(device))
+    rnorm0 = float(torch.sqrt(torch.sum(b64 * b64)))
+    syncs = 1
+    if rnorm0 == 0.0:
+        return RefineResult(np.zeros(tuple(b64.shape)), 0, [], 0.0, 0.0, True,
+                            syncs=syncs)
+    x64 = torch.zeros_like(b64)
+    history: List[float] = []
+    r64, rnorm = b64, rnorm0   # x = 0: r = b exactly, no f64 matvec
+    for p in range(max_passes + 1):
+        if p > 0:
+            r64 = b64 - matvec(x64)
+            rnorm = float(torch.sqrt(torch.sum(r64 * r64)))
+            syncs += 1
+        history.append(rnorm / rnorm0)
+        if history[-1] <= rtol or p == max_passes:
+            break
+        d32 = solve_f32((r64 / rnorm).to(torch.float32))
+        x64 = x64 + rnorm * d32.to(torch.float64)
+    return RefineResult(x64.cpu().numpy(), len(history) - 1, history, rnorm,
+                        rnorm0, history[-1] <= rtol, syncs=syncs)
 
 
 def df_northstar_fused(
@@ -79,7 +165,7 @@ def df_northstar_fused(
         if not bool(rnorm > tol):
             break
         res = cg(op.mv, rhi / rnorm, maxiter=pcg_maxiter, rtol=inner_rtol,
-                 precond_dot=Md, matvec_dot=op.mv_dot)
+                 precond_dot=Md, matvec_dot=getattr(op, "mv_dot", None))
         pcg_iters.append(res.iters)
         syncs += res.syncs
         upd = df64.df_mul_f32((res.x, torch.zeros_like(res.x)), rnorm)
@@ -143,6 +229,21 @@ def df_iterative_refinement(
     x = df64.df_to_f64((xhi, xlo)).reshape(dims) if return_host else (xhi, xlo)
     return RefineResult(x, len(history) - 1, history, rnorm, rnorm0,
                         history[-1] <= rtol, syncs=syncs)
+
+
+def stencil2d_mv_np(m: int, n: int, diag: float = 4.0, off: float = -1.0):
+    """Exact f64 host matvec for the 2D 5-point operator (numpy)."""
+
+    def mv(x):
+        g = np.asarray(x, np.float64).reshape(m, n)
+        y = diag * g
+        y[1:, :] += off * g[:-1, :]
+        y[:-1, :] += off * g[1:, :]
+        y[:, 1:] += off * g[:, :-1]
+        y[:, :-1] += off * g[:, 1:]
+        return y.reshape(-1)
+
+    return mv
 
 
 def stencil3d_mv_np(nx: int, ny: int, nz: int, diag: float = 6.0,

@@ -18,7 +18,11 @@ by 1e-16 relative, moves x by 5e-7 (SM) and 6e-7 (AM) at 32^2.  There
 the iterates are held to 1e-4 (the largest difference measured is
 2e-5), and the inner iteration totals, which count a borderline inner
 test one way or the other, to 1%.  A Chebyshev inner solve is linear in
-its inputs and keeps 1e-12 to the end.
+its inputs and keeps 1e-12 to the end.  The inner methods ``cg``,
+``bicgstab`` and ``ca_gmres`` sit in between: unpreconditioned they are
+held like GMRES (1e-4, totals to 1%); under ``pc='mg'`` every inner solve
+takes a handful of iterations to well below its rtol, nothing is
+borderline, and the iterates and totals agree to 1e-10 and exactly.
 """
 
 import numpy as np
@@ -192,15 +196,135 @@ class TestOptions:
             np.testing.assert_allclose(t["history"][:5], hj[:5], rtol=1e-10)
 
 
+INNER = {
+    "cg": ((16, 16), "sm", dict(inner=jms.InnerConfig(method="cg")), False),
+    "bicgstab": ((16, 16), "sm",
+                 dict(inner=jms.InnerConfig(method="bicgstab")), False),
+    "ca_gmres": ((16, 16), "sm", dict(
+        inner=jms.InnerConfig(method="ca_gmres", restart=6)), False),
+    "ca_gmres_given_bounds": ((16, 16), "smsm", dict(
+        scope="local", s=3, inner=jms.InnerConfig(
+            method="ca_gmres", restart=4, eig_min=0.05, eig_max=7.9)), False),
+    "cg_mg_global": ((16, 16), "smsm", dict(
+        scope="global", s=3, inner=jms.InnerConfig(method="cg", pc="mg")),
+        True),
+    "gmres_mg": ((16, 16), "sm", dict(inner=jms.InnerConfig(pc="mg")), True),
+    "bicgstab_mg": ((16, 16), "sm", dict(
+        inner=jms.InnerConfig(method="bicgstab", pc="mg")), True),
+    "gmres_mg_3d": ((8, 8, 8), "sm", dict(inner=jms.InnerConfig(pc="mg")),
+                    True),
+    "cg_mg_3d_async": ((16, 8, 8), "am", dict(
+        staleness=2, inner=jms.InnerConfig(method="cg", pc="mg")), True),
+    "per_block_cg_mg_and_ca_gmres": ((16, 16), "sm", dict(inner=(
+        jms.InnerConfig(method="cg", pc="mg"),
+        jms.InnerConfig(method="ca_gmres", restart=5))), False),
+}
+
+
+class TestInnerSolves:
+    @pytest.mark.parametrize("case", list(INNER))
+    def test_against_jax(self, case):
+        """The inner methods and ``pc='mg'`` as the JAX package composes
+        them: sweep and cycle counts equal, iterates and inner totals as
+        the module's note says."""
+        shape, entry, kw, tight = INNER[case]
+        rj, rt = _run(shape, entry, dict(kw, rtol=1e-4, maxiter=1500))
+        t = _assert_same(rj, rt, 1e-10 if tight else 1e-4, iters_exact=tight)
+        assert t["converged"]
+
+    def test_mg_cuts_the_inner_work(self):
+        """What the preconditioner is for: the same sweeps with a small
+        fraction of the inner iterations."""
+        op = tbo.block_poisson2d(32, 32)
+        b = tbo.rhs_ones(op, torch.float64, "cpu")
+        plain = tms.sm(op, b, inner=tms.InnerConfig(method="cg"))
+        mg = tms.sm(op, b, inner=tms.InnerConfig(method="cg", pc="mg"))
+        assert plain.converged and mg.converged
+        assert abs(mg.sweeps - plain.sweeps) <= 2
+        assert int(mg.inner_iters) * 4 < int(plain.inner_iters)
+
+    def test_lanczos_bounds_for_an_operator_without_analytic_ones(self):
+        """A block operator that carries per-block arrays and no
+        ``diag_eig_bounds``: Chebyshev and CA-GMRES inner solves estimate
+        the interval by Lanczos over the blocks."""
+        rng = np.random.default_rng(3)
+        nb, bs = 2, 12
+        q = np.linalg.qr(rng.standard_normal((nb, bs, bs)))[0]
+        a = (q * np.linspace(1.0, 9.0, bs)) @ q.transpose(0, 2, 1)
+        a = torch.from_numpy(0.5 * (a + a.transpose(0, 2, 1)))
+
+        class DenseBlocks(tbo.BlockOperator):
+            nblocks, block_size, diag, off = nb, bs, 1.0, 0.0
+            dtype = torch.float64
+            diag_mv_args = a
+
+            def single_diag_mv(self, args, xb):
+                return xb @ args.T
+
+            def diag_mv(self, x):
+                return torch.einsum("bij,...bj->...bi", a, x)
+
+            def coupling_mv(self, x):
+                return torch.zeros_like(x)
+
+        op = DenseBlocks()
+        lo, hi = tms._lanczos_block_bounds(op, "chebyshev")
+        assert 0.85 <= lo <= 1.0 and 9.0 <= hi <= 10.0
+        b = torch.from_numpy(rng.standard_normal((nb, bs)))
+        for cfg in (tms.InnerConfig(method="chebyshev", maxiter=40),
+                    tms.InnerConfig(method="ca_gmres", restart=4, maxiter=40,
+                                    rtol=1e-8)):
+            r = tms.sm(op, b, inner=cfg, rtol=1e-6, maxiter=50)
+            assert r.converged
+            torch.testing.assert_close(op.diag_mv(r.x), b, rtol=1e-5, atol=1e-6)
+        op.diag_mv_args = None
+        with pytest.raises(ValueError, match="Lanczos"):
+            tms._lanczos_block_bounds(op, "chebyshev")
+
+
 class TestRejects:
     @pytest.mark.parametrize("method,pc", [
         ("cg", "none"), ("bicgstab", "none"), ("ca_gmres", "none"),
         ("gmres", "bjacobi"), ("gmres", "mg")])
     def test_not_ported(self, method, pc):
+        """Of the inner options that once waited, only ``pc='bjacobi'``
+        still does (it belongs to the stacked sparse operators); the
+        others run."""
         op = tbo.block_poisson2d(8, 8)
         b = tbo.rhs_ones(op, torch.float64, "cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tms.sm(op, b, inner=tms.InnerConfig(method=method, pc=pc))
+        cfg = tms.InnerConfig(method=method, pc=pc, restart=4)
+        if pc == "bjacobi":
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                tms.sm(op, b, inner=cfg)
+        else:
+            assert tms.sm(op, b, inner=cfg).converged
+
+    @pytest.mark.parametrize("case", [
+        "chebyshev_with_pc", "ca_gmres_with_pc", "unknown_pc",
+        "mg_without_stencil_blocks"])
+    def test_inner_composition_errors(self, case):
+        """The errors of the JAX ``_make_single_inner``, in both
+        packages."""
+        jop, top = _ops((8, 8))
+        b = tbo.rhs_ones(top, torch.float64, "cpu")
+        kw = {
+            "chebyshev_with_pc": dict(method="chebyshev", pc="jacobi"),
+            "ca_gmres_with_pc": dict(method="ca_gmres", pc="mg"),
+            "unknown_pc": dict(pc="ilu"),
+            "mg_without_stencil_blocks": dict(pc="mg"),
+        }[case]
+        if case == "mg_without_stencil_blocks":
+            class Bare(tbo.BlockOperator):
+                nblocks, block_size, diag = 2, 32, 4.0
+
+            with pytest.raises(ValueError, match="stencil-family"):
+                tms._make_single_inner(Bare(), tms.InnerConfig(**kw))
+            return
+        with pytest.raises(ValueError) as et:
+            tms.sm(top, b, inner=tms.InnerConfig(**kw))
+        with pytest.raises(ValueError) as ej:
+            jms.sm(jop, jnp.asarray(b.numpy()), inner=jms.InnerConfig(**kw))
+        assert str(et.value) == str(ej.value)
 
     @pytest.mark.parametrize("case", [
         "schedule", "scope", "sync_staleness", "b_shape", "collection",

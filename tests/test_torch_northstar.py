@@ -164,7 +164,10 @@ class TestBoundary:
             # slice 3
             "solve", "prepare", "lstsq", "PreparedSolver", "DenseOp", "ELL",
             "DIA", "BSR", "AIJ", "operator_from_coo", "from_scipy",
-            "as_routed_operator", "minres", "bicgstab", "default_device"}
+            "as_routed_operator", "minres", "bicgstab", "default_device",
+            # slice 4
+            "residual_norm_sq", "iterative_refinement",
+            "device_iterative_refinement", "df_iterative_refinement"}
 
     def test_chip_smoke_refuses_without_a_card(self, tmp_path):
         assert not torch.cuda.is_available()
