@@ -21,7 +21,10 @@ from this checkout and nothing of JAX, and:
    started together) and prints the build time;
 4. kernel phase: holds every kernel and kind against its plain PyTorch
    version on the card, for every dtype combination of the paths:
-   kernels A-D at 512^3, at an odd shape and at 4^3; kernel E (the 2D
+   kernels A-D at 512^3, at an odd shape and at 4^3, kernel C also at
+   2^3, 8^3 (the cycle's last prolongation), 514x258x130 (every dim 2 past
+   a multiple of its tile) and on grids at an odd offset (its scalar
+   path); kernel E (the 2D
    apply) at 8192^2, the two 2048x4096 strips of 4096^2, an s=4 panel
    of 4096^2, 3x37x130 and 4x4 in f32 and f64; kernels F and G (VecMDot
    and VecMAXPY) on the GMRES(20) basis of 4096^2 strips, (2, 21, 2^23),
@@ -29,10 +32,12 @@ from this checkout and nothing of JAX, and:
    odd length; kernel H (the CSR product) on a structureless square
    pattern, n = 2^22 with 10 draws a row, and on a rectangular
    200,003 x 150,001 pattern with empty rows and one row of 50,000
-   entries, forward and transpose; kernel I (the block-ELL product) at
+   entries, forward and transpose, and on one row of 20,000 entries
+   among 100,000 empty ones, a 2-row matrix whose rows span chunks and
+   64 rows of exactly one chunk; kernel I (the block-ELL product) at
    (nb 256, bs 128, width 8), (nb 4096, bs 64, width 8), bs 8 and 16, and
    a shape not divisible by bs; H and I in f32 and f64, for 1 and 4
-   vectors, two launches giving equal bits.  Times kernel, plain and,
+   vectors (H also 5), two launches giving equal bits.  Times kernel, plain and,
    where one PyTorch call computes the same function, that call, at the
    paths' shapes (CUDA events, median of 20), beside the least time the
    card could take (bytes over 3.35 TB/s, operations over 67 TFLOP/s).
@@ -49,8 +54,9 @@ from this checkout and nothing of JAX, and:
 5. north-star phase: ``df_northstar_fused(op, b_df, rtol=1e-8,
    inner_rtol=1e-4)`` at 256^3 and 512^3 with b = A·1.  The first run
    at each size is counted: kernels A-D must have been launched.  It
-   must converge in at most 3 passes, to a relative residual <= 1e-8
-   recomputed in f64 on the card, with max|x - 1| <= 1e-6.  At 512^3
+   must converge in at most 3 passes (PCG 5 and 6 iterations, as every
+   earlier run), to a relative residual <= 1e-8 recomputed in f64 on the
+   card, with max|x - 1| <= 1e-6.  At 512^3
    the solve time is the median of 3 more runs;
 5a. fused-direction phase, 512^3: ``df_iterative_refinement`` around
    ``cg(..., precond_dot=W-cycle, matvec_dot=op.mv_dot,
@@ -104,10 +110,13 @@ from this checkout and nothing of JAX, and:
    CG with Jacobi on the 1024^2 2D Poisson matrix (DIA), and LSQR on the
    rectangular pattern (AIJ, forward and transpose).  The first solve of
    each is counted: every kernel on its route must have been launched,
-   it must converge on the stated operator, and the residual measured on
-   the host in f64 against the input matrix must lie under the bound.
-   Prints iterations, launches, set-up and solve times (median of 3 more
-   solves), peak memory, and the device-busy share of one AIJ solve.
+   it must converge on the stated operator, in the iterations every
+   earlier run took (AIJ 7, and 7 each with 4 right-hand sides; LSQR 8),
+   and the residual measured on the host in f64 against the input matrix
+   must lie under the bound.  Prints iterations, launches, set-up and
+   solve times (median of 3 more solves), peak memory, the device-busy
+   share of one AIJ solve, and beside kernel H on the solve's matrix the
+   time of its gathers alone (``torch.index_select``).
 
 Any failure raises.  The line before the last is a JSON object of the
 kernels; the last line is ``{"ok": true, "device": {...}}``.
@@ -176,6 +185,10 @@ FULL = (512, 512, 512)
 ODD = (37, 24, 130)
 ODD_EVEN = (38, 24, 130)   # kernels B and C need even dims
 TINY = (4, 4, 4)
+# kernel C's further shapes: 2^3, the cycle's last prolongation (8^3 from
+# 4^3), and every dim 2 past a multiple of its tile (16 y, 64 z, a slab of
+# 16 x planes at this size)
+C_SHAPES = ((2, 2, 2), (8, 8, 8), (514, 258, 130))
 SLICE = (256, 512)          # north-star grid sizes
 DIAG, OFF = 6.0, -1.0
 # kernel E: (batch, m, n) shapes; the timed ones: the strips of 4096^2
@@ -519,6 +532,29 @@ def kernel_phase(torch, k, dev) -> dict:
                 inputs=(x, b, e), flops_per_point=23)
             del x, b, e
         log(f"kernels B, C: {shape} ok")
+    for shape in C_SHAPES:
+        coarse = tuple(n // 2 for n in shape)
+        for d in ("f32", "bf16"):
+            x, b, e = rand(shape, d), rand(shape, d), rand(coarse, d)
+            run("stencil3d_prolong_jacobi", shape, (d, d),
+                lambda: k.stencil3d_prolong_jacobi(x, b, e, diag=DIAG, off=OFF,
+                                                   omega=OMEGA),
+                lambda: k.stencil3d_prolong_jacobi_plain(
+                    x, b, e, diag=DIAG, off=OFF, omega=OMEGA), (d,))
+            del x, b, e
+        log(f"kernel C: {shape} ok")
+    for d in ("f32", "bf16"):
+        # grids that start one element past a pair: kernel C's scalar path
+        n = ODD_EVEN[0] * ODD_EVEN[1] * ODD_EVEN[2]
+        x, b = (rand((n + 1,), d)[1:].view(ODD_EVEN) for _ in range(2))
+        e = rand(tuple(m // 2 for m in ODD_EVEN), d)
+        run("stencil3d_prolong_jacobi", ODD_EVEN, (d, d),
+            lambda: k.stencil3d_prolong_jacobi(x, b, e, diag=DIAG, off=OFF,
+                                               omega=OMEGA),
+            lambda: k.stencil3d_prolong_jacobi_plain(
+                x, b, e, diag=DIAG, off=OFF, omega=OMEGA), (d,))
+        del x, b, e
+    log("kernel C: grids at an odd offset ok")
 
     for shape in (FULL, ODD, TINY):
         # x and b as df pairs with a lo part of realistic size
@@ -887,6 +923,9 @@ def slice_phase(torch, port, k, dev) -> dict:
         if not (res.converged and res.passes <= 3):
             raise AssertionError(f"{n}^3: converged={res.converged} in "
                                  f"{res.passes} passes")
+        if list(res.pcg_iters) != [5, 6]:
+            raise AssertionError(f"{n}^3: PCG iterations {res.pcg_iters}, "
+                                 f"every earlier run took [5, 6]")
         if not rel <= 1e-8:
             raise AssertionError(f"{n}^3: f64 relative residual {rel:.3e}")
         if not err <= 1e-6:
@@ -1448,6 +1487,26 @@ def rectangular_csr(np, sp):
     return A
 
 
+def hard_patterns(np, sp, chunk: int):
+    """Kernel H's hard patterns, (label, scipy CSR): one row of 20,000
+    entries among 100,000 empty ones, a 2-row matrix whose rows run over
+    several chunks, and 64 rows of exactly one chunk each."""
+    rng = np.random.default_rng(12)
+
+    def of(lengths, ncols):
+        indptr = np.concatenate([[0], np.cumsum(lengths)])
+        indices = np.concatenate([np.sort(rng.choice(ncols, n, replace=False))
+                                  for n in lengths if n])
+        return sp.csr_matrix((rng.standard_normal(len(indices)), indices,
+                              indptr), shape=(len(lengths), ncols))
+
+    one = np.zeros(100_000, np.int64)
+    one[31_337] = 20_000
+    return [("one non-empty row", of(one, 50_000)),
+            ("two rows", of([3_001, 5_000], 10_000)),
+            ("rows of one chunk", of([chunk] * 64, 100_000))]
+
+
 def hold(torch, what, kernel, plain, dtype, terms) -> float:
     """Raise unless two launches of ``kernel`` give equal bits and agree
     with ``plain`` to the tolerance of ``kernel_phase_sparse``; return
@@ -1492,8 +1551,8 @@ def routed_case(torch, entry, what, kernel, plain, library, terms, n_bytes,
 
 def kernel_phase_sparse(torch, dev):
     """Kernels H (``csr_mv``) and I (``bsr_mv``) against their plain
-    versions, f32 and f64, for 1 and 4 vectors; two launches must agree
-    in every bit.  Tolerance, f32: |kernel - plain| <= 1e-5 |plain| +
+    versions, f32 and f64, for 1 and 4 vectors (H also 5, and on its hard
+    patterns); two launches must agree in every bit.  Tolerance, f32: |kernel - plain| <= 1e-5 |plain| +
     1e-6 sqrt(terms) max|plain|, where ``terms`` is the longest row (H) or
     ``width * bs`` (I): the sums are taken in another order and with FMA,
     and the plain version of H adds with atomics.  f64: the same with
@@ -1525,29 +1584,39 @@ def kernel_phase_sparse(torch, dev):
     rc = rect_host.tocoo()
     rect = AIJ.from_coo(rc.row, rc.col, rc.data, RECT, dtype=torch.float64,
                         device=dev)
+    hard = []
+    for label, a in hard_patterns(np, sp, csr.CHUNK):
+        c = a.tocoo()
+        hard.append((label, AIJ.from_coo(c.row, c.col, c.data, a.shape,
+                                         dtype=torch.float64, device=dev)))
     log(f"kernel H: patterns built in {time.perf_counter() - t0:.1f} s "
-        f"(square {square.nnz} nonzeros, rectangular {rect.nnz})")
-    for label, op in (("square", square), ("rectangular", rect)):
+        f"(square {square.nnz} nonzeros, rectangular {rect.nnz}; "
+        + ", ".join(f"{label} {op.nnz}" for label, op in hard) + ")")
+    for label, op in [("square", square), ("rectangular", rect)] + hard:
         for dtype in (torch.float32, torch.float64):
             for tr in (False, True):
-                ptr, idx, dat, nout, nin = (
-                    (op.t_indptr, op.t_indices, op.t_data, op.ncols, op.nrows)
+                ptr, idx, dat, part, nout, nin = (
+                    (op.t_indptr, op.t_indices, op.t_data, op.t_partition,
+                     op.ncols, op.nrows)
                     if tr else
-                    (op.indptr, op.indices, op.data, op.nrows, op.ncols))
+                    (op.indptr, op.indices, op.data, op.partition, op.nrows,
+                     op.ncols))
                 dat = dat.to(dtype)
                 longest = int((ptr[1:] - ptr[:-1]).max())
-                for k in (1, 4):
+                for k in (1, 4, 5):
                     x = torch.randn((k, nin) if k > 1 else (nin,),
                                     generator=gen, device=dev, dtype=dtype)
                     what = (f"{label}{' transpose' if tr else ''} {dtype} "
                             f"k={k}")
                     e = compare(
                         "csr_mv", what,
-                        lambda: csr.csr_mv(ptr, idx, dat, x, nout),
+                        lambda: csr.csr_mv(ptr, idx, dat, x, nout,
+                                           partition=part),
                         lambda: csr.csr_mv_plain(ptr, idx, dat, x, nout),
                         dtype, longest)
                     ms = median_ms(torch,
-                                   lambda: csr.csr_mv(ptr, idx, dat, x, nout))
+                                   lambda: csr.csr_mv(ptr, idx, dat, x, nout,
+                                                      partition=part))
                     least = bound(
                         nbytes(ptr, idx, dat)
                         + k * (nout + nin) * dat.element_size(),
@@ -1555,26 +1624,29 @@ def kernel_phase_sparse(torch, dev):
                     log(f"csr_mv {what}: ok, max error {e:.2e}, kernel "
                         f"{ms:.3f} ms, bound {least['bound_ms']:.3f} ms, "
                         f"longest row {longest}")
-                    if (label, dtype, tr, k) == ("square", torch.float32,
-                                                 False, 1):
+                    if (dtype, tr, k) == (torch.float32, False, 1) and \
+                            label in ("square", "rectangular"):
                         A_lib = torch.sparse_csr_tensor(ptr, idx, dat,
                                                         size=(nout, nin))
-                        square_ms, spread = repeat_ms(
-                            torch, lambda: csr.csr_mv(ptr, idx, dat, x, nout))
+                        ms, spread = repeat_ms(
+                            torch, lambda: csr.csr_mv(ptr, idx, dat, x, nout,
+                                                      partition=part))
                         plain_ms = median_ms(
                             torch, lambda: csr.csr_mv_plain(ptr, idx, dat, x,
                                                             nout))
                         lib = library_ms(torch, lambda: A_lib @ x, "csr_mv")
-                        log(f"csr_mv f32 n=2^22, {square.nnz} nonzeros: "
-                            f"kernel {square_ms:.3f} ms (3 medians of 20, "
+                        log(f"csr_mv f32 {label}, {op.nnz} nonzeros: "
+                            f"kernel {ms:.3f} ms (3 medians of 20, "
                             f"spread {spread:.1%}), plain {plain_ms:.3f} ms, "
                             f"library (torch.sparse_csr_tensor @ x) {lib}, "
                             f"bound {least['bound_ms']:.3f} ms")
+                        if label == "square":
+                            square_ms = ms
                         del A_lib
                     del x
                 del dat
     square_ms_per_nnz = square_ms / square.nnz
-    del square, rect, rows, cols, vals
+    del square, rect, hard, rows, cols, vals
     torch.cuda.empty_cache()
 
     # --- kernel I
@@ -1827,7 +1899,9 @@ def api_phase(torch, port, dev, cases, report) -> dict:
         info["launches"] = counts
         return x, info
 
-    def expect(label, info, operator, bound_, key="rel_residual"):
+    def expect(label, info, operator, bound_, key="rel_residual", iters=None):
+        """``iters``: the iteration count (a list for a panel) every earlier
+        run of this solve took."""
         worst = float(np.max(info[key]))
         if info["operator"] != operator or not info["converged"] \
                 or not worst <= bound_:
@@ -1835,6 +1909,9 @@ def api_phase(torch, port, dev, cases, report) -> dict:
                 f"{label}: operator {info['operator']} (expected {operator}),"
                 f" converged {info['converged']}, {key} {worst:.3e} (bound "
                 f"{bound_})")
+        if iters is not None and np.asarray(info["iters"]).tolist() != iters:
+            raise AssertionError(f"{label}: {info['iters']} iterations, "
+                                 f"expected {iters}")
 
     # 1. AIJ: structureless symmetric, strictly diagonally dominant
     t0 = time.perf_counter()
@@ -1862,18 +1939,23 @@ def api_phase(torch, port, dev, cases, report) -> dict:
     routed_case(
         torch, report["csr_mv"],
         f"csr_mv on the solve's matrix (n=2^22, {op.nnz} nonzeros, "
-        f"{csr.group_lanes(op.nnz, n)} lanes a row) f32 k=1",
-        lambda: csr.csr_mv(op.indptr, op.indices, op.data, xk, n, n),
+        f"{csr.csr_blocks(op.nnz)} chunks) f32 k=1",
+        lambda: csr.csr_mv(op.indptr, op.indices, op.data, xk, n, n,
+                           partition=op.partition),
         lambda: csr.csr_mv_plain(op.indptr, op.indices, op.data, xk, n, n),
         lambda: A_lib @ xk,
         terms=int((op.indptr[1:] - op.indptr[:-1]).max()),
         n_bytes=nbytes(op.indptr, op.indices, op.data) + 2 * n * 4,
         flops=2 * op.nnz)
+    # what the gathers alone cost: one 32-byte sector a nonzero
+    gather_ms = median_ms(torch, lambda: torch.index_select(xk, 0, op.indices))
+    log(f"csr_mv on the solve's matrix: the gathers alone (torch.index_select "
+        f"of x at its {op.nnz} columns) {gather_ms:.3f} ms")
     del A_lib, xk, op
     label = "solve AIJ gmres+jacobi n=2^22"
     x, info = counted(label, lambda: prep.solve(b),
                       ("csr_mv", "mdot", "maxpy"))
-    expect(label, info, "AIJ", 2e-6)
+    expect(label, info, "AIJ", 2e-6, iters=7)
     log(f"{label}: max|x-1| {np.abs(x - 1).max():.3e}")
     busy_share(torch, label, lambda: prep.solve(b), info["solve_ms"])
     rng = np.random.default_rng(2)
@@ -1882,7 +1964,7 @@ def api_phase(torch, port, dev, cases, report) -> dict:
     label = "prepared AIJ solve, 4 right-hand sides"
     x, info = counted(label, lambda: prep.solve(panel),
                       ("csr_mv", "mdot", "maxpy"))
-    expect(label, info, "AIJ", 2e-6)
+    expect(label, info, "AIJ", 2e-6, iters=[7, 7, 7, 7])
     del prep, A, b, panel, x
     torch.cuda.empty_cache()
 
@@ -1961,7 +2043,7 @@ def api_phase(torch, port, dev, cases, report) -> dict:
     label = "lstsq lsqr 200003x150001 (set-up inside)"
     x, info = counted(label, lambda: port.lstsq(A, b, method="lsqr",
                                                 rtol=1e-6), ("csr_mv",))
-    expect(label, info, "AIJ", 1e-5, key="rel_opt")
+    expect(label, info, "AIJ", 1e-5, key="rel_opt", iters=8)
     # every LSQR iteration takes one product with A and one with A^T
     if info["launches"]["csr_mv"] < 2 * info["iters"]:
         raise AssertionError(f"{label}: {info['launches']} launches in "

@@ -52,7 +52,9 @@ __all__ = [
 #     blocks holding 2^28 stored values in all, by block size (0.435 to
 #     0.445 ms at 32, 64 and 128; 2.26 ms at 8);
 #   * aij_relative_cost: kernel H (``ops.csr.csr_mv``) on a structureless
-#     square pattern, n = 2^22, 10 draws a row (0.439 ms);
+#     square pattern, n = 2^22, 10 draws a row (0.396 ms against DIA's
+#     0.791 ms in the same call; the other constants come from an earlier
+#     call, and kernel I and ``ELL.mv`` have not changed since);
 #   * ell_relative_cost: ``ELL.mv`` (gather and row sum in plain PyTorch)
 #     on a structureless pattern, n = 2^20, 10 draws a row (0.580 ms);
 #   * max_dense_n: the largest power of two at which ``DenseOp.mv`` was no
@@ -69,7 +71,7 @@ __all__ = [
 SHIPPED = {
     "bsr_bs_penalty": {8: 0.849, 16: 0.258, 32: 0.164, 64: 0.163, 128: 0.167},
     "ell_relative_cost": 5.566,
-    "aij_relative_cost": 1.053,
+    "aij_relative_cost": 1.002,
     "max_dense_n": 4096,
 }
 

@@ -41,7 +41,10 @@ import torch.nn.functional as F
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.core.device import resolve
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import stencil3d as k
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops.bsr import bsr_mv
-from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops.csr import csr_mv
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops.csr import (
+    csr_mv,
+    csr_partition,
+)
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops.stencil2d import (
     stencil2d_apply,
 )
@@ -525,7 +528,8 @@ class AIJ:
     duplicates summed and rows sorted by column.  ``rmv`` runs the same
     kernel on the CSR of the transpose (``t_*``; a symmetric matrix shares
     the forward arrays, ``with_rmv=False`` leaves them out).  Both
-    products run kernel H.
+    products run kernel H, each with the chunk partition of its CSR,
+    built once per matrix (and again by ``to``).
 
     The JAX package's AIJ compiles the pattern into a routed gather
     program because its hardware gather reaches one small tile; nothing
@@ -539,6 +543,10 @@ class AIJ:
     t_data: Optional[torch.Tensor]
     nrows: int
     ncols: int
+    # kernel H's chunk partitions (``ops.csr.csr_partition``) of the
+    # forward and the transpose CSR, built with them
+    partition: Optional[torch.Tensor] = None
+    t_partition: Optional[torch.Tensor] = None
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -579,7 +587,20 @@ class AIJ:
             at = a.T.tocsr()
             at.sort_indices()
             tr = fwd if _same_csr(a, at) else arrays(at)
-        return AIJ(*fwd, *tr, nrows=nrows, ncols=ncols)
+        return AIJ._with_partitions(fwd, tr, nrows, ncols)
+
+    @staticmethod
+    def _with_partitions(fwd, tr, nrows: int, ncols: int) -> "AIJ":
+        """The AIJ of these CSR arrays, with the partition of each (one
+        shared by shared arrays)."""
+        part = csr_partition(fwd[0], fwd[2].shape[0])
+        t_part = None
+        if tr[2] is fwd[2]:
+            t_part = part
+        elif tr[2] is not None:
+            t_part = csr_partition(tr[0], tr[2].shape[0])
+        return AIJ(*fwd, *tr, nrows=nrows, ncols=ncols, partition=part,
+                   t_partition=t_part)
 
     def to_dense(self) -> torch.Tensor:
         rows = torch.repeat_interleave(
@@ -592,13 +613,13 @@ class AIJ:
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         return csr_mv(self.indptr, self.indices, self.data, x, self.nrows,
-                      self.ncols)
+                      self.ncols, partition=self.partition)
 
     def rmv(self, y: torch.Tensor) -> torch.Tensor:
         if self.t_data is None:
             raise ValueError("AIJ packed with with_rmv=False")
         return csr_mv(self.t_indptr, self.t_indices, self.t_data, y,
-                      self.ncols, self.nrows)
+                      self.ncols, self.nrows, partition=self.t_partition)
 
     def to(self, device) -> "AIJ":
         device = resolve(device)
@@ -611,7 +632,7 @@ class AIJ:
         else:
             tr = tuple(t.to(device)
                        for t in (self.t_indptr, self.t_indices, self.t_data))
-        return AIJ(*fwd, *tr, nrows=self.nrows, ncols=self.ncols)
+        return AIJ._with_partitions(fwd, tr, self.nrows, self.ncols)
 
 
 # ---------------------------------------------------------------------------

@@ -326,7 +326,7 @@ cudaError_t launch_axpy_mv_dot(const void* z, const void* p, const void* beta,
 }
 
 // ---------------------------------------------------------------------------
-// Shared by kernels B and C: A x at one point, zero outside the grid.
+// Kernel B's A x at one point, zero outside the grid.
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -404,43 +404,261 @@ __global__ void __launch_bounds__(POINT_THREADS) residual_restrict_kernel(
 // prolonged m never reaches device memory.
 //
 // Bound: memory bytes, reads of x, b and e (1/8 size) and one write:
-// 12.5 bytes a fine point in f32.
+// 12.5 bytes a fine point in f32, 6.25 in bf16 (0.84 GB at 512^3, 0.25 ms
+// at 3.35 TB/s).
 //
-// Design: one thread per fine point.  m is formed in f32 and never
-// rounded to the storage type; each of the 6 neighbours takes the e of
-// its own coarse cell, and m is 0 outside the grid, for x and e alike.
-// What the simple design gives up: every m is recomputed by up to 7
-// threads (7 reads of x and 7 of e through the cache per point).
+// Design: kernel A's walk, a warp wide and PJ_R rows deep.  A lane owns one
+// coarse cell in z (a z pair) and PJ_CY cells in y: PJ_R = 2 PJ_CY fine
+// rows, whose 2 PJ_R points share PJ_CY values of e.  It walks a slab of x
+// planes (ops/stencil3d.py PJ_SLAB or fewer) keeping m at x-1, x and
+// x+1 of its points in registers, so that m = x + e is formed once a point,
+// in f32 and never rounded.  The y neighbours are its own rows, but for
+// the two rows above and below, which it loads; the z neighbours are the
+// next lanes' points, passed by shuffles, but for the warp's two ends,
+// which lanes 0 and 31 load.  No shared memory and no barrier: each warp
+// walks on its own.  A lane's loads go out one plane ahead of their use
+// (x and e of plane x+2, b and the halo of plane x+1, while plane x is
+// computed), one float2 or __nv_bfloat162 load a row and grid: with even
+// nz every pair starts aligned when the arrays do, and arrays that do not
+// (a view at an odd offset) take scalar loads in the same kernel (the VEC
+// template flag, chosen per launch).  m is 0 outside the grid, for x and e
+// alike, by index tests.  The taps are stencil7's sum, rounded once at the
+// store, as the plain version and kernel A do.  No per-point division:
+// coarse indices are the lane's own, shifted.
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__device__ __forceinline__ float m_at(const T* __restrict__ x, const T* __restrict__ e,
-                                      int64_t i, int64_t j, int64_t k, int64_t nx,
-                                      int64_t ny, int64_t nz) {
-    if (i < 0 || i >= nx || j < 0 || j >= ny || k < 0 || k >= nz) return 0.f;
-    const int64_t nyc = ny / 2, nzc = nz / 2;
-    return load(x, (i * ny + j) * nz + k) + load(e, ((i / 2) * nyc + j / 2) * nzc + k / 2);
+constexpr int PJ_TZ = 32;                  // lanes along z, a coarse cell each
+constexpr int PJ_CY = 2;                   // coarse cells along y a lane owns
+constexpr int PJ_R = 2 * PJ_CY;            // its fine rows
+constexpr int PJ_WY = 4;                   // warps along y in a block
+constexpr int PJ_NT = PJ_TZ * PJ_WY;
+// blocks an SM must hold: 6 in bf16 (at most 80 registers a thread), 4 in
+// f32 (128), the caps under which the walk ran fastest at 512^3 on an H100
+// (a tighter cap spills, a looser one leaves too few warps in flight)
+template <typename T> struct PjResident { enum { value = sizeof(T) == 2 ? 6 : 4 }; };
+
+// a z pair of a storage type, as loaded
+template <typename T> struct PairOf;
+template <> struct PairOf<float> { typedef float2 type; };
+template <> struct PairOf<bf16> { typedef __nv_bfloat162 type; };
+
+__device__ __forceinline__ float2 to_f2(float2 v) { return v; }
+__device__ __forceinline__ float2 to_f2(__nv_bfloat162 v) { return __bfloat1622float2(v); }
+
+template <bool VEC>
+__device__ __forceinline__ float2 load_pair(const float* __restrict__ p, int64_t i) {
+    if (VEC) return __ldg(reinterpret_cast<const float2*>(p + i));
+    return make_float2(__ldg(p + i), __ldg(p + i + 1));
+}
+template <bool VEC>
+__device__ __forceinline__ __nv_bfloat162 load_pair(const bf16* __restrict__ p, int64_t i) {
+    if (VEC) return __ldg(reinterpret_cast<const __nv_bfloat162*>(p + i));
+    return __halves2bfloat162(__ldg(p + i), __ldg(p + i + 1));
+}
+template <bool VEC>
+__device__ __forceinline__ void store_pair(float* __restrict__ p, int64_t i, float2 v) {
+    if (VEC) {
+        *reinterpret_cast<float2*>(p + i) = v;
+    } else {
+        p[i] = v.x;
+        p[i + 1] = v.y;
+    }
+}
+template <bool VEC>
+__device__ __forceinline__ void store_pair(bf16* __restrict__ p, int64_t i, float2 v) {
+    if (VEC) {
+        *reinterpret_cast<__nv_bfloat162*>(p + i) = __floats2bfloat162_rn(v.x, v.y);
+    } else {
+        p[i] = __float2bfloat16_rn(v.x);
+        p[i + 1] = __float2bfloat16_rn(v.y);
+    }
+}
+
+__device__ __forceinline__ float2 add_e(float2 v, float e) {
+    return make_float2(v.x + e, v.y + e);
+}
+
+__device__ __forceinline__ float pj_point(float c, float xn, float xs, float yn, float ys,
+                                          float zw, float ze, float bv, float diag,
+                                          float off, float omega) {
+    const float am = diag * c + off * ((((xn + xs) + yn) + ys) + (zw + ze));
+    return c + omega * (bv - am);
+}
+
+template <typename T> __device__ __forceinline__ T zero_of();
+template <> __device__ __forceinline__ float zero_of<float>() { return 0.f; }
+template <> __device__ __forceinline__ bf16 zero_of<bf16>() { return __float2bfloat16_rn(0.f); }
+template <> __device__ __forceinline__ float2 zero_of<float2>() { return make_float2(0.f, 0.f); }
+template <> __device__ __forceinline__ __nv_bfloat162 zero_of<__nv_bfloat162>() {
+    return __floats2bfloat162_rn(0.f, 0.f);
+}
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+// Where a lane works: the grids' extents, its coarse cells and fine corner
+struct PjLane {
+    int64_t nx, ny, nz, nzc, plane, cplane;
+    int64_t cy0, kc, j0, k0;
+    int cells;      // of its PJ_CY cells, those inside the grid (0 past z)
+    bool top, bot;  // whether rows j0 - 1 and j0 + PJ_R are inside the grid
+    int zdir;       // -1 for lane 0 (z point k0 - 1), +1 for lane 31 (k0 + 2)
+};
+
+// The loads of one plane, in the storage type, 0 outside the grid: the
+// lane's x pairs and e values ("own"), and its b pairs with the halo it
+// fills ("edge").  m = x + e is formed one plane after the loads go out.
+template <typename T> struct PjOwn {
+    typename PairOf<T>::type x[PJ_R];
+    T e[PJ_CY];
+};
+template <typename T> struct PjEdge {
+    typename PairOf<T>::type b[PJ_R], yt, yb;
+    T eyt, eyb;
+    T z[PJ_R];      // lanes 0 and 31: the z halo of each row
+    T ez[PJ_CY];
+};
+
+template <bool VEC, typename T>
+__device__ __forceinline__ PjOwn<T> pj_own(const T* __restrict__ x, const T* __restrict__ e,
+                                           const PjLane& l, int64_t p) {
+    PjOwn<T> o;
+    const bool in = p >= 0 && p < l.nx;
+    const int64_t q = p * l.plane + l.j0 * l.nz + l.k0;
+    const int64_t qe = (p >> 1) * l.cplane + l.cy0 * l.nzc + l.kc;
+#pragma unroll
+    for (int c = 0; c < PJ_CY; ++c) {
+        const bool ok = in && c < l.cells;
+        o.x[2 * c] = ok ? load_pair<VEC>(x, q + 2 * c * l.nz) : zero_of<typename PairOf<T>::type>();
+        o.x[2 * c + 1] =
+            ok ? load_pair<VEC>(x, q + (2 * c + 1) * l.nz) : zero_of<typename PairOf<T>::type>();
+        o.e[c] = ok ? e[qe + c * l.nzc] : zero_of<T>();
+    }
+    return o;
+}
+
+template <bool VEC, typename T>
+__device__ __forceinline__ PjEdge<T> pj_edge(const T* __restrict__ x, const T* __restrict__ e,
+                                             const T* __restrict__ b, const PjLane& l,
+                                             int64_t p, bool in) {
+    typedef typename PairOf<T>::type P;
+    PjEdge<T> d;
+    const int64_t q = p * l.plane + l.j0 * l.nz + l.k0;
+    const int64_t cp = (p >> 1) * l.cplane;
+#pragma unroll
+    for (int r = 0; r < PJ_R; ++r)
+        d.b[r] = in && r / 2 < l.cells ? load_pair<VEC>(b, q + r * l.nz) : zero_of<P>();
+    const bool top = in && l.top, bot = in && l.bot;
+    d.yt = top ? load_pair<VEC>(x, q - l.nz) : zero_of<P>();
+    d.eyt = top ? e[cp + (l.cy0 - 1) * l.nzc + l.kc] : zero_of<T>();
+    d.yb = bot ? load_pair<VEC>(x, q + PJ_R * l.nz) : zero_of<P>();
+    d.eyb = bot ? e[cp + (l.cy0 + PJ_CY) * l.nzc + l.kc] : zero_of<T>();
+    const int64_t kh = l.zdir < 0 ? l.k0 - 1 : l.k0 + 2;
+    const bool zin = in && l.zdir != 0 && kh >= 0 && kh < l.nz;
+#pragma unroll
+    for (int c = 0; c < PJ_CY; ++c) {
+        const bool ok = zin && l.cy0 + c < l.ny / 2;
+        d.z[2 * c] = ok ? x[q + 2 * c * l.nz + (kh - l.k0)] : zero_of<T>();
+        d.z[2 * c + 1] = ok ? x[q + (2 * c + 1) * l.nz + (kh - l.k0)] : zero_of<T>();
+        d.ez[c] = ok ? e[cp + (l.cy0 + c) * l.nzc + (kh >> 1)] : zero_of<T>();
+    }
+    return d;
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(PJ_NT, PjResident<T>::value) prolong_jacobi_kernel(
+    const T* __restrict__ x, const T* __restrict__ b, const T* __restrict__ e,
+    T* __restrict__ out, int64_t nx, int64_t ny, int64_t nz, int64_t slab,
+    float diag, float off, float omega) {
+    const int lane = threadIdx.x;
+    PjLane l;
+    l.nx = nx; l.ny = ny; l.nz = nz; l.nzc = nz / 2;
+    l.plane = ny * nz; l.cplane = (ny / 2) * l.nzc;
+    l.kc = (int64_t)blockIdx.x * PJ_TZ + lane;
+    l.cy0 = ((int64_t)blockIdx.y * PJ_WY + threadIdx.y) * PJ_CY;
+    l.j0 = 2 * l.cy0;
+    l.k0 = 2 * l.kc;
+    {
+        const int64_t left = ny / 2 - l.cy0;
+        l.cells = l.kc >= l.nzc || left <= 0 ? 0 : left < PJ_CY ? (int)left : PJ_CY;
+    }
+    l.top = l.j0 >= 1 && l.j0 - 1 < ny && l.kc < l.nzc;
+    l.bot = l.j0 + PJ_R < ny && l.kc < l.nzc;
+    l.zdir = lane == 0 ? -1 : lane == PJ_TZ - 1 ? 1 : 0;
+    const int64_t i0 = (int64_t)blockIdx.z * slab;
+    const int64_t i1 = i0 + slab < nx ? i0 + slab : nx;
+
+    // m of the lane's points at planes i-1, i and i+1; when plane i starts,
+    // the loads of own(i+1) and edge(i) are in flight
+    float2 prev[PJ_R], cur[PJ_R], next[PJ_R];
+    {
+        const PjOwn<T> a = pj_own<VEC>(x, e, l, i0 - 1);
+        const PjOwn<T> c = pj_own<VEC>(x, e, l, i0);
+#pragma unroll
+        for (int r = 0; r < PJ_R; ++r) {
+            prev[r] = add_e(to_f2(a.x[r]), to_f(a.e[r / 2]));
+            cur[r] = add_e(to_f2(c.x[r]), to_f(c.e[r / 2]));
+        }
+    }
+    PjOwn<T> own = pj_own<VEC>(x, e, l, i0 + 1);
+    PjEdge<T> edge = pj_edge<VEC>(x, e, b, l, i0, true);
+    for (int64_t i = i0; i < i1; ++i) {
+#pragma unroll
+        for (int r = 0; r < PJ_R; ++r) next[r] = add_e(to_f2(own.x[r]), to_f(own.e[r / 2]));
+        const PjEdge<T> d = edge;
+        // the next plane's loads go out before this plane is computed
+        own = pj_own<VEC>(x, e, l, i + 1 < i1 ? i + 2 : -1);
+        edge = pj_edge<VEC>(x, e, b, l, i + 1, i + 1 < i1);
+        const float2 yt = add_e(to_f2(d.yt), to_f(d.eyt));
+        const float2 yb = add_e(to_f2(d.yb), to_f(d.eyb));
+        const int64_t q = i * l.plane + l.j0 * nz + l.k0;
+#pragma unroll
+        for (int r = 0; r < PJ_R; ++r) {
+            const float zh = to_f(d.z[r]) + to_f(d.ez[r / 2]);
+            const float up = __shfl_up_sync(0xffffffffu, cur[r].y, 1);
+            const float down = __shfl_down_sync(0xffffffffu, cur[r].x, 1);
+            const float zw = lane == 0 ? zh : up;
+            const float ze = lane == PJ_TZ - 1 ? zh : down;
+            const float2 yn = r == 0 ? yt : cur[r - 1];
+            const float2 ys = r == PJ_R - 1 ? yb : cur[r + 1];
+            const float2 bv = to_f2(d.b[r]);
+            float2 o;
+            o.x = pj_point(cur[r].x, prev[r].x, next[r].x, yn.x, ys.x, zw, cur[r].y, bv.x,
+                           diag, off, omega);
+            o.y = pj_point(cur[r].y, prev[r].y, next[r].y, yn.y, ys.y, cur[r].x, ze, bv.y,
+                           diag, off, omega);
+            if (r / 2 < l.cells) store_pair<VEC>(out, q + r * nz, o);
+        }
+#pragma unroll
+        for (int r = 0; r < PJ_R; ++r) {
+            prev[r] = cur[r];
+            cur[r] = next[r];
+        }
+    }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(POINT_THREADS) prolong_jacobi_kernel(
-    const T* __restrict__ x, const T* __restrict__ b, const T* __restrict__ e,
-    T* __restrict__ out, int64_t nx, int64_t ny, int64_t nz, float diag,
-    float off, float omega) {
-    const int64_t t = (int64_t)blockIdx.x * POINT_THREADS + threadIdx.x;
-    if (t >= nx * ny * nz) return;
-    const int64_t k = t % nz;
-    const int64_t j = (t / nz) % ny;
-    const int64_t i = t / (nz * ny);
-    const float c = m_at(x, e, i, j, k, nx, ny, nz);
-    const float xn = m_at(x, e, i - 1, j, k, nx, ny, nz);
-    const float xs = m_at(x, e, i + 1, j, k, nx, ny, nz);
-    const float yn = m_at(x, e, i, j - 1, k, nx, ny, nz);
-    const float ys = m_at(x, e, i, j + 1, k, nx, ny, nz);
-    const float zw = m_at(x, e, i, j, k - 1, nx, ny, nz);
-    const float ze = m_at(x, e, i, j, k + 1, nx, ny, nz);
-    const float am = diag * c + off * ((((xn + xs) + yn) + ys) + (zw + ze));
-    store(out, t, c + omega * (load(b, t) - am));
+cudaError_t launch_prolong_jacobi(const void* x, const void* b, const void* e, void* out,
+                                  int64_t nx, int64_t ny, int64_t nz, int64_t slab,
+                                  float diag, float off, float omega, cudaStream_t s) {
+    const int64_t cells_y = PJ_CY * PJ_WY;
+    const dim3 grid((unsigned)((nz / 2 + PJ_TZ - 1) / PJ_TZ),
+                    (unsigned)((ny / 2 + cells_y - 1) / cells_y),
+                    (unsigned)((nx + slab - 1) / slab));
+    const dim3 block(PJ_TZ, PJ_WY);
+    // pairs are aligned when every array starts on a pair (nz is even)
+    const uintptr_t pair = 2 * sizeof(T);
+    const bool vec = reinterpret_cast<uintptr_t>(x) % pair == 0 &&
+                     reinterpret_cast<uintptr_t>(b) % pair == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % pair == 0;
+    if (vec)
+        prolong_jacobi_kernel<T, true><<<grid, block, 0, s>>>(
+            static_cast<const T*>(x), static_cast<const T*>(b), static_cast<const T*>(e),
+            static_cast<T*>(out), nx, ny, nz, slab, diag, off, omega);
+    else
+        prolong_jacobi_kernel<T, false><<<grid, block, 0, s>>>(
+            static_cast<const T*>(x), static_cast<const T*>(b), static_cast<const T*>(e),
+            static_cast<T*>(out), nx, ny, nz, slab, diag, off, omega);
+    return cudaGetLastError();
 }
 
 unsigned point_blocks(int64_t n) {
@@ -539,28 +757,21 @@ int stencil3d_residual_restrict(int dtype, const void* x, const void* b,
 }
 
 // x, b, out: fine (nx, ny, nz), even dims; e: coarse (nx/2, ny/2, nz/2);
-// all of one type.
+// all of one type.  slab: x planes a block walks (ops/stencil3d.py
+// prolong_jacobi_slab).
 int stencil3d_prolong_jacobi(int dtype, const void* x, const void* b,
                              const void* e, void* out, int64_t nx, int64_t ny,
-                             int64_t nz, float diag, float off, float omega,
-                             void* stream) {
-    if (nx < 2 || ny < 2 || nz < 2 || nx % 2 || ny % 2 || nz % 2)
+                             int64_t nz, int64_t slab, float diag, float off,
+                             float omega, void* stream) {
+    if (nx < 2 || ny < 2 || nz < 2 || nx % 2 || ny % 2 || nz % 2 || slab < 1 ||
+        (nx + slab - 1) / slab > 65535 || ny / 2 > 65535LL * PJ_CY * PJ_WY)
         return cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const unsigned blocks = point_blocks(nx * ny * nz);
     if (dtype == F32)
-        prolong_jacobi_kernel<float><<<blocks, POINT_THREADS, 0, s>>>(
-            static_cast<const float*>(x), static_cast<const float*>(b),
-            static_cast<const float*>(e), static_cast<float*>(out), nx, ny, nz,
-            diag, off, omega);
-    else if (dtype == BF16)
-        prolong_jacobi_kernel<bf16><<<blocks, POINT_THREADS, 0, s>>>(
-            static_cast<const bf16*>(x), static_cast<const bf16*>(b),
-            static_cast<const bf16*>(e), static_cast<bf16*>(out), nx, ny, nz,
-            diag, off, omega);
-    else
-        return cudaErrorInvalidValue;
-    return cudaGetLastError();
+        return launch_prolong_jacobi<float>(x, b, e, out, nx, ny, nz, slab, diag, off, omega, s);
+    if (dtype == BF16)
+        return launch_prolong_jacobi<bf16>(x, b, e, out, nx, ny, nz, slab, diag, off, omega, s);
+    return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -60,7 +60,7 @@ SIGNATURES = {
         "stencil3d_residual_restrict": (
             [_I, _P, _P, _P, _I64, _I64, _I64, _F, _F, _F, _P], _I),
         "stencil3d_prolong_jacobi": (
-            [_I, _P, _P, _P, _P, _I64, _I64, _I64, _F, _F, _F, _P], _I),
+            [_I, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _F, _F, _F, _P], _I),
     },
     "df_residual": {
         "kernel_error_string": ([_I], ctypes.c_char_p),
@@ -83,7 +83,8 @@ SIGNATURES = {
     },
     "csr_mv": {
         "kernel_error_string": ([_I], ctypes.c_char_p),
-        "csr_mv": ([_I, _I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P], _I),
+        "csr_mv": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                    _I64, _P], _I),
     },
     "bsr_mv": {
         "kernel_error_string": ([_I], ctypes.c_char_p),

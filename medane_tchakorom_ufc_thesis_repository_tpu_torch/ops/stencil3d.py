@@ -313,6 +313,26 @@ def stencil3d_prolong_jacobi_plain(x: torch.Tensor, b: torch.Tensor,
     return out.to(x.dtype)
 
 
+# kernel C's block: a tile of (PJ_TY, PJ_TZ) coarse cells in (y, z)
+# (csrc/stencil3d.cu: PJ_CY * PJ_WY and PJ_TZ), walking at most PJ_SLAB x
+# planes
+PJ_TY, PJ_TZ, PJ_SLAB = 8, 32, 16
+PJ_MIN_BLOCKS = 1024     # about 8 blocks for each of the H100's 132 SMs
+
+
+def prolong_jacobi_slab(shape) -> int:
+    """The x planes a block of kernel C walks on an even ``(nx, ny, nz)``
+    grid: ``PJ_SLAB``, halved (down to 2) while the grid would have fewer
+    than ``PJ_MIN_BLOCKS`` blocks, so that the cycle's small levels run as
+    many short walks instead of a few long ones."""
+    nx, ny, nz = shape
+    tiles = -(-(ny // 2) // PJ_TY) * -(-(nz // 2) // PJ_TZ)
+    slab = PJ_SLAB
+    while slab > 2 and tiles * -(-nx // slab) < PJ_MIN_BLOCKS:
+        slab //= 2
+    return slab
+
+
 def stencil3d_prolong_jacobi(x: torch.Tensor, b: torch.Tensor,
                              e: torch.Tensor, *, diag: float, off: float,
                              omega: float) -> torch.Tensor:
@@ -330,7 +350,8 @@ def stencil3d_prolong_jacobi(x: torch.Tensor, b: torch.Tensor,
     out = torch.empty_like(x)
     rc = lib.stencil3d_prolong_jacobi(
         _DTYPE_CODE[x.dtype], x.data_ptr(), b.data_ptr(), e.data_ptr(),
-        out.data_ptr(), nx, ny, nz, diag, off, omega, build.stream(x))
+        out.data_ptr(), nx, ny, nz, prolong_jacobi_slab(x.shape), diag, off,
+        omega, build.stream(x))
     build.check(lib, rc, "stencil3d_prolong_jacobi")
     build.launches["stencil3d_prolong_jacobi"] += 1
     return out

@@ -37,6 +37,11 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers import bjacobi as 
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers import castep as tca
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers import eigest as teig
 
+# one intra-op thread a process: the suite runs in several worker
+# processes at once, and a PyTorch thread pool in each of them would
+# oversubscribe the cores
+torch.set_num_threads(1)
+
 CPU = "cpu"
 J64 = dict(dtype=jnp.float64)
 T64 = dict(dtype=torch.float64, device=CPU)

@@ -20,6 +20,11 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.core import poisson as tpo
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import stencil3d as k
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers import df64 as tdf
 
+# one intra-op thread a process: the suite runs in several worker
+# processes at once, and a PyTorch thread pool in each of them would
+# oversubscribe the cores
+torch.set_num_threads(1)
+
 
 def _df_pair(shape, seed):
     """An f32 (hi, lo) pair with a lo part of realistic size, numpy."""

@@ -28,6 +28,11 @@ from medane_tchakorom_ufc_thesis_repository_tpu.ops import fused_pallas as fp
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import build
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import fused as f
 
+# one intra-op thread a process: the suite runs in several worker
+# processes at once, and a PyTorch thread pool in each of them would
+# oversubscribe the cores
+torch.set_num_threads(1)
+
 
 @pytest.fixture()
 def _interpret():

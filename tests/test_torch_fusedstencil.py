@@ -45,6 +45,11 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import stencil3d as k
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers import krylov as tkr
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers import multigrid as tmg
 
+# one intra-op thread a process: the suite runs in several worker
+# processes at once, and a PyTorch thread pool in each of them would
+# oversubscribe the cores
+torch.set_num_threads(1)
+
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 

@@ -50,6 +50,11 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.lstsq import (
     lstsq_qr as tlstsq_qr,
 )
 
+# one intra-op thread a process: the suite runs in several worker
+# processes at once, and a PyTorch thread pool in each of them would
+# oversubscribe the cores
+torch.set_num_threads(1)
+
 
 def _np(shape, seed):
     return np.random.default_rng(seed).standard_normal(shape)

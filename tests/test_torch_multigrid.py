@@ -26,6 +26,11 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.chebyshev import (
     chebyshev as tcheb,
 )
 
+# one intra-op thread a process: the suite runs in several worker
+# processes at once, and a PyTorch thread pool in each of them would
+# oversubscribe the cores
+torch.set_num_threads(1)
+
 
 def _ops(dims):
     return jpoisson.poisson3d(*dims), tpoisson.poisson3d(*dims)

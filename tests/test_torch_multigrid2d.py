@@ -24,6 +24,11 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.core import poisson as tpo
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers import krylov as tkr
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers import multigrid as tmg
 
+# one intra-op thread a process: the suite runs in several worker
+# processes at once, and a PyTorch thread pool in each of them would
+# oversubscribe the cores
+torch.set_num_threads(1)
+
 
 def _ops(dims):
     if len(dims) == 2:
@@ -177,7 +182,7 @@ class TestCycleF64:
         bf16 and ``b - A x`` cancels: PCG with a bf16 V-cycle takes more
         iterations than with an f32 one, in the JAX package and in the
         port (which rounds the apply once, and is no worse)."""
-        n = 256
+        n = 192
         jop, top = _ops((n, n))
         b = np.asarray(jop.mv(jnp.ones((n, n), jnp.float32)))
         b = b / np.linalg.norm(b)

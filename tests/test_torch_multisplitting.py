@@ -37,6 +37,11 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch import convert
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.models import blockops as tbo
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.models import multisplitting as tms
 
+# one intra-op thread a process: the suite runs in several worker
+# processes at once, and a PyTorch thread pool in each of them would
+# oversubscribe the cores
+torch.set_num_threads(1)
+
 
 def _ops(shape, nblocks=2):
     if len(shape) == 2:

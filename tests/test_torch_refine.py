@@ -35,6 +35,11 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers import chebyshev a
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers import df64 as tdf
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers import refine as tref
 
+# one intra-op thread a process: the suite runs in several worker
+# processes at once, and a PyTorch thread pool in each of them would
+# oversubscribe the cores
+torch.set_num_threads(1)
+
 
 def _f32(shape, seed):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)

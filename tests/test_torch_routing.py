@@ -28,6 +28,11 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.core import calibration as
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.core import operators as tops
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.core import poisson as tpoisson
 
+# one intra-op thread a process: the suite runs in several worker
+# processes at once, and a PyTorch thread pool in each of them would
+# oversubscribe the cores
+torch.set_num_threads(1)
+
 CPU = "cpu"
 
 

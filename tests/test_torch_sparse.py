@@ -33,6 +33,11 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.core import poisson as tpo
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import bsr as tbsr
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import csr as tcsr
 
+# one intra-op thread a process: the suite runs in several worker
+# processes at once, and a PyTorch thread pool in each of them would
+# oversubscribe the cores
+torch.set_num_threads(1)
+
 CPU = "cpu"
 
 
@@ -333,7 +338,7 @@ class TestAij:
             one.mv(torch.ones(2000, dtype=torch.float64)).numpy(), want)
 
     def test_plain_kernel_form(self):
-        """``csr_mv_plain`` on raw CSR arrays, and the lane-group rule."""
+        """``csr_mv_plain`` on raw CSR arrays, and the chunk rule."""
         a = sp.random(40, 30, density=0.2, random_state=8).tocsr()
         a.sort_indices()
         x = np.random.default_rng(9).standard_normal((2, 30))
@@ -341,8 +346,11 @@ class TestAij:
                                 torch.from_numpy(a.indices.astype(np.int32)),
                                 torch.from_numpy(a.data), _t(x), 40)
         _close(got.numpy(), x @ a.toarray().T, 1e-14)
-        assert [tcsr.group_lanes(nnz, 100) for nnz in
-                (100, 399, 400, 1000, 1600, 10 ** 6)] == [2, 2, 4, 8, 16, 32]
+        c = tcsr.CHUNK
+        assert [tcsr.csr_blocks(nnz) for nnz in
+                (0, 1, c, c + 1, 10 * c)] == [1, 1, 1, 2, 10]
+        assert tcsr.csr_partition(torch.from_numpy(
+            a.indptr.astype(np.int32)), a.nnz).tolist() == [0, 40]
         with pytest.raises(ValueError, match="int32"):
             tcsr.csr_mv(torch.from_numpy(a.indptr.astype(np.int64)),
                         torch.from_numpy(a.indices.astype(np.int32)),

@@ -38,6 +38,11 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import build
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import stencil2d as k
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers import chebyshev as tcheb
 
+# one intra-op thread a process: the suite runs in several worker
+# processes at once, and a PyTorch thread pool in each of them would
+# oversubscribe the cores
+torch.set_num_threads(1)
+
 DIAG, OFF = 4.0, -1.0
 
 

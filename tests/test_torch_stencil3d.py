@@ -31,6 +31,11 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import build
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import stencil3d as k
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers import multigrid as tmg
 
+# one intra-op thread a process: the suite runs in several worker
+# processes at once, and a PyTorch thread pool in each of them would
+# oversubscribe the cores
+torch.set_num_threads(1)
+
 DIAG, OFF = 6.0, -1.0
 OMEGA = (6.0 / 7.0) / DIAG
 SHAPES = [(16, 16, 16), (16, 16, 32)]
