@@ -2,7 +2,10 @@
 // family: the apply with its fused epilogues (kernel A, and as one more
 // kind the fused residual norm, kernel K), the multigrid cycle's fused
 // residual + restriction (kernel B) and its fused prolongation + Jacobi
-// sweep (kernel C), and PCG's fused direction update (kernel J).
+// sweep (kernel C), and PCG's fused direction update (kernel J).  Kernels
+// B and C, and kernel A's kind jacobi_dot on f32 and bf16 storage, are
+// barrier-free warp walks; the other kinds of A, and J and K, walk one
+// thread a (y, z) column.
 //
 // Plain C interface, bound with ctypes by ops/stencil3d.py.  Every entry
 // point launches on the stream it is given, allocates nothing, and returns
@@ -78,7 +81,9 @@ __device__ __forceinline__ TC stencil7(TC diag, TC off, TC c, TC xm, TC xp,
 // The dot kinds (x.Ax for mv_dot, b.x' for jacobi_dot, both on the
 // arithmetic-type value before its cast to the output type; the sum of
 // (b - y)^2 for mv_norm) write one partial sum per
-// block; sum_partials adds the partials in a fixed order.  No float
+// block; sum_partials adds the partials in a fixed order.  (The wrapper
+// sends jacobi_dot on f32 and bf16 storage to its own walk,
+// stencil3d_jacobi_dot below; here it serves f64.)  No float
 // atomics, so a dot is the same from run to run and CG's iteration counts
 // repeat.  (The Pallas kernel carried the sum across its sequential grid,
 // which Hopper's blocks do not have.)
@@ -326,76 +331,6 @@ cudaError_t launch_axpy_mv_dot(const void* z, const void* p, const void* beta,
 }
 
 // ---------------------------------------------------------------------------
-// Kernel B's A x at one point, zero outside the grid.
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__device__ __forceinline__ float apply_at(const T* __restrict__ x, int64_t i,
-                                          int64_t j, int64_t k, int64_t nx,
-                                          int64_t ny, int64_t nz, float diag,
-                                          float off) {
-    const int64_t plane = ny * nz;
-    const int64_t idx = i * plane + j * nz + k;
-    const float c = load(x, idx);
-    const float xn = i > 0 ? load(x, idx - plane) : 0.f;
-    const float xs = i + 1 < nx ? load(x, idx + plane) : 0.f;
-    const float yn = j > 0 ? load(x, idx - nz) : 0.f;
-    const float ys = j + 1 < ny ? load(x, idx + nz) : 0.f;
-    const float zw = k > 0 ? load(x, idx - 1) : 0.f;
-    const float ze = k + 1 < nz ? load(x, idx + 1) : 0.f;
-    return diag * c + off * ((((xn + xs) + yn) + ys) + (zw + ze));
-}
-
-constexpr int POINT_THREADS = 256;
-
-// ---------------------------------------------------------------------------
-// Kernel B: stencil3d_residual_restrict
-//
-// Replaces ops/stencil_pallas.py:stencil3d_residual_restrict_pallas
-// (_kernel3d_rr): rc = (scale/8) * sum over each 2x2x2 cell of (b - A x),
-// written only to the (nx/2, ny/2, nz/2) coarse grid.  The fine residual
-// never reaches device memory.
-//
-// Bound: memory bytes, one read of x and b and a write of rc (1/8 size):
-// 8.5 bytes a fine point in f32.
-//
-// Design: one thread per coarse point computes its 8 fine residuals, each
-// from 7 reads of x served by L1/L2.  The sums run over x pairs, then y
-// pairs, then z pairs, and the result is rounded once to the storage type.
-// (The Pallas kernel's 0/1 pairing matmuls were a Mosaic work-around for
-// strided addressing and are not ported; in bf16 it rounded the pair sums
-// twice.)  What the simple design gives up: neighbouring threads read
-// every other z element, so loads are half coalesced, and each x value is
-// read up to 7 times through the cache.
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(POINT_THREADS) residual_restrict_kernel(
-    const T* __restrict__ x, const T* __restrict__ b, T* __restrict__ rc,
-    int64_t nx, int64_t ny, int64_t nz, float diag, float off, float s8) {
-    const int64_t nxc = nx / 2, nyc = ny / 2, nzc = nz / 2;
-    const int64_t t = (int64_t)blockIdx.x * POINT_THREADS + threadIdx.x;
-    if (t >= nxc * nyc * nzc) return;
-    const int64_t kc = t % nzc;
-    const int64_t jc = (t / nzc) % nyc;
-    const int64_t ic = t / (nzc * nyc);
-    float r[2][2][2];
-    for (int di = 0; di < 2; ++di)
-        for (int dj = 0; dj < 2; ++dj)
-            for (int dk = 0; dk < 2; ++dk) {
-                const int64_t i = 2 * ic + di, j = 2 * jc + dj, k = 2 * kc + dk;
-                r[di][dj][dk] = load(b, (i * ny + j) * nz + k) -
-                                apply_at(x, i, j, k, nx, ny, nz, diag, off);
-            }
-    float sx[2][2];
-    for (int dj = 0; dj < 2; ++dj)
-        for (int dk = 0; dk < 2; ++dk) sx[dj][dk] = r[0][dj][dk] + r[1][dj][dk];
-    const float sy0 = sx[0][0] + sx[1][0];
-    const float sy1 = sx[0][1] + sx[1][1];
-    store(rc, t, s8 * (sy0 + sy1));
-}
-
-// ---------------------------------------------------------------------------
 // Kernel C: stencil3d_prolong_jacobi
 //
 // Replaces ops/stencil_pallas.py:stencil3d_prolong_jacobi_pallas
@@ -410,7 +345,7 @@ __global__ void __launch_bounds__(POINT_THREADS) residual_restrict_kernel(
 // Design: kernel A's walk, a warp wide and PJ_R rows deep.  A lane owns one
 // coarse cell in z (a z pair) and PJ_CY cells in y: PJ_R = 2 PJ_CY fine
 // rows, whose 2 PJ_R points share PJ_CY values of e.  It walks a slab of x
-// planes (ops/stencil3d.py PJ_SLAB or fewer) keeping m at x-1, x and
+// planes (ops/stencil3d.py walk_slab) keeping m at x-1, x and
 // x+1 of its points in registers, so that m = x + e is formed once a point,
 // in f32 and never rounded.  The y neighbours are its own rows, but for
 // the two rows above and below, which it loads; the z neighbours are the
@@ -661,8 +596,473 @@ cudaError_t launch_prolong_jacobi(const void* x, const void* b, const void* e, v
     return cudaGetLastError();
 }
 
-unsigned point_blocks(int64_t n) {
-    return (unsigned)((n + POINT_THREADS - 1) / POINT_THREADS);
+// ---------------------------------------------------------------------------
+// The warp walk of kernel B and of kernel A's kind jacobi_dot
+//
+// Kernel C's walk without the coarse correction.  A lane owns a z pair,
+// the points k0 = 2 (blockIdx.x WK_TZ + lane) and k0 + 1, in WK_R fine
+// rows j0 .. j0 + WK_R - 1; a block is WK_WY warps along y, a tile of
+// 16 rows by 64 z points (ops/stencil3d.py WALK_TY, WALK_TZ), and walks a
+// slab of x planes (ops/stencil3d.py walk_slab) keeping x at planes i-1, i
+// and i+1 of its points in f32 registers.  The y neighbours are its own
+// rows, but for the two halo rows, which it loads; the z neighbours are
+// the next lanes' points, passed by shuffles, but for the warp's two ends,
+// which lanes 0 and 31 load.  No shared memory and no barrier.  The loads
+// of plane i+1 go out while plane i is computed, one float2 or
+// __nv_bfloat162 load a row and array; a launch whose arrays do not all
+// start on a pair, or whose nz is odd, takes scalar loads (VEC false),
+// guarded point by point.  A point outside the grid is 0 by the index
+// tests, and a lane with no point in the grid still walks, with zeros,
+// so that every lane takes part in the shuffles.
+// ---------------------------------------------------------------------------
+
+constexpr int WK_TZ = 32;                  // lanes along z, a z pair each
+constexpr int WK_R = 4;                    // fine rows a lane owns
+constexpr int WK_WY = 4;                   // warps along y in a block
+constexpr int WK_NT = WK_TZ * WK_WY;
+// blocks an SM must hold, by storage type (the register cap of the walk)
+template <typename T> struct WalkResident { enum { value = sizeof(T) == 2 ? 6 : 4 }; };
+
+struct WalkLane {
+    int64_t nx, ny, nz, plane, j0, k0;
+    int rows;       // of its WK_R rows, those inside the grid (0 without points)
+    int pts;        // of its z pair, the points inside the grid: 0, 1 or 2
+    bool top, bot;  // whether it loads the halo rows j0 - 1 and j0 + WK_R
+    int zdir;       // -1 for lane 0 (z point k0 - 1), +1 for lane 31 (k0 + 2)
+};
+
+__device__ __forceinline__ WalkLane walk_lane(int64_t nx, int64_t ny, int64_t nz) {
+    WalkLane l;
+    l.nx = nx; l.ny = ny; l.nz = nz; l.plane = ny * nz;
+    l.k0 = 2 * ((int64_t)blockIdx.x * WK_TZ + threadIdx.x);
+    l.j0 = ((int64_t)blockIdx.y * WK_WY + threadIdx.y) * WK_R;
+    const int64_t pts = nz - l.k0, rows = ny - l.j0;
+    l.pts = pts <= 0 ? 0 : pts < 2 ? (int)pts : 2;
+    l.rows = l.pts == 0 || rows <= 0 ? 0 : rows < WK_R ? (int)rows : WK_R;
+    l.top = l.rows > 0 && l.j0 > 0;
+    l.bot = l.rows > 0 && l.j0 + WK_R < ny;
+    l.zdir = threadIdx.x == 0 ? -1 : threadIdx.x == WK_TZ - 1 ? 1 : 0;
+    return l;
+}
+
+__device__ __forceinline__ float2 first_of(const float* __restrict__ p, int64_t i) {
+    return make_float2(__ldg(p + i), 0.f);
+}
+__device__ __forceinline__ __nv_bfloat162 first_of(const bf16* __restrict__ p, int64_t i) {
+    return __halves2bfloat162(__ldg(p + i), __float2bfloat16_rn(0.f));
+}
+
+// The pair at p + i of which the first pts points are inside the grid,
+// the others 0.  With VEC, nz is even and pts is 0 or 2.
+template <bool VEC, typename T>
+__device__ __forceinline__ typename PairOf<T>::type pair_at(const T* __restrict__ p,
+                                                            int64_t i, int pts) {
+    if (pts <= 0) return zero_of<typename PairOf<T>::type>();
+    if (VEC || pts == 2) return load_pair<VEC>(p, i);
+    return first_of(p, i);
+}
+
+template <bool VEC, typename T>
+__device__ __forceinline__ void store_pts(T* __restrict__ p, int64_t i, float2 v, int pts) {
+    if (pts == 2)
+        store_pair<VEC>(p, i, v);
+    else if (pts == 1)
+        store(p, i, v.x);
+}
+
+// The loads of one plane, in the storage type, 0 outside the grid: the
+// lane's x pairs ("own", a plane ahead of the next one's use), and its b
+// pairs with the halo ("edge", for the plane computed next).
+template <typename T> struct WalkOwn {
+    typename PairOf<T>::type x[WK_R];
+};
+template <typename T> struct WalkEdge {
+    typename PairOf<T>::type b[WK_R], yt, yb;
+    T z[WK_R];      // lanes 0 and 31: the z halo of each row
+};
+
+template <bool VEC, typename T>
+__device__ __forceinline__ WalkOwn<T> walk_own(const T* __restrict__ x, const WalkLane& l,
+                                               int64_t p) {
+    WalkOwn<T> o;
+    const bool in = p >= 0 && p < l.nx;
+    const int64_t q = p * l.plane + l.j0 * l.nz + l.k0;
+#pragma unroll
+    for (int r = 0; r < WK_R; ++r)
+        o.x[r] = pair_at<VEC>(x, q + r * l.nz, in && r < l.rows ? l.pts : 0);
+    return o;
+}
+
+template <bool VEC, typename T>
+__device__ __forceinline__ WalkEdge<T> walk_edge(const T* __restrict__ x,
+                                                 const T* __restrict__ b, const WalkLane& l,
+                                                 int64_t p, bool in) {
+    WalkEdge<T> d;
+    const int64_t q = p * l.plane + l.j0 * l.nz + l.k0;
+#pragma unroll
+    for (int r = 0; r < WK_R; ++r)
+        d.b[r] = pair_at<VEC>(b, q + r * l.nz, in && r < l.rows ? l.pts : 0);
+    d.yt = pair_at<VEC>(x, q - l.nz, in && l.top ? l.pts : 0);
+    d.yb = pair_at<VEC>(x, q + WK_R * l.nz, in && l.bot ? l.pts : 0);
+    const int64_t kh = l.zdir < 0 ? l.k0 - 1 : l.k0 + 2;
+    const bool zin = in && l.zdir != 0 && kh >= 0 && kh < l.nz;
+#pragma unroll
+    for (int r = 0; r < WK_R; ++r)
+        d.z[r] = zin && r < l.rows ? x[q + r * l.nz + (kh - l.k0)] : zero_of<T>();
+    return d;
+}
+
+// The lane's six neighbours of each of its points at one plane
+struct Taps {
+    float2 yn, ys;  // rows j-1 and j+1
+    float zw, ze;   // z points k0 - 1 and k0 + 2
+};
+
+template <typename T>
+__device__ __forceinline__ Taps taps_of(const float2 (&cur)[WK_R], const WalkEdge<T>& d,
+                                        int r) {
+    const int lane = threadIdx.x;
+    const float zh = to_f(d.z[r]);
+    const float up = __shfl_up_sync(0xffffffffu, cur[r].y, 1);
+    const float down = __shfl_down_sync(0xffffffffu, cur[r].x, 1);
+    Taps t;
+    t.zw = lane == 0 ? zh : up;
+    t.ze = lane == WK_TZ - 1 ? zh : down;
+    t.yn = r == 0 ? to_f2(d.yt) : cur[r - 1];
+    t.ys = r == WK_R - 1 ? to_f2(d.yb) : cur[r + 1];
+    return t;
+}
+
+dim3 walk_grid(int64_t nx, int64_t ny, int64_t nz, int64_t slab) {
+    return dim3((unsigned)(((nz + 1) / 2 + WK_TZ - 1) / WK_TZ),
+                (unsigned)((ny + WK_R * WK_WY - 1) / (WK_R * WK_WY)),
+                (unsigned)((nx + slab - 1) / slab));
+}
+
+bool walk_fits(int64_t nx, int64_t ny, int64_t slab) {
+    return slab >= 1 && (nx + slab - 1) / slab <= 65535 &&
+           (ny + WK_R * WK_WY - 1) / (WK_R * WK_WY) <= 65535;
+}
+
+bool pair_aligned(const void* p, size_t pair) {
+    return reinterpret_cast<uintptr_t>(p) % pair == 0;
+}
+
+// ---------------------------------------------------------------------------
+// Kernel B: stencil3d_residual_restrict
+//
+// Replaces ops/stencil_pallas.py:stencil3d_residual_restrict_pallas
+// (_kernel3d_rr): rc = (scale/8) * sum over each 2x2x2 cell of (b - A x),
+// written only to the (nx/2, ny/2, nz/2) coarse grid.  The fine residual
+// never reaches device memory.
+//
+// Bound: memory bytes, one read of x and b and a write of rc (1/8 size):
+// 8.5 bytes a fine point in f32, 4.25 in bf16 (0.57 GB at 512^3, 0.170 ms
+// at 3.35 TB/s).
+//
+// Design: the warp walk above, with its loads staged.  A lane's z pair is
+// one coarse cell in z and its 4 rows two coarse cells in y; its slab
+// starts on an even plane and has an even length (walk_slab), so it walks
+// the planes in pairs.  Each lane copies its own pairs of every plane (x
+// of its rows and of the two halo rows, b of its rows, and for lanes 0
+// and 31 the pair that holds the z halo) with cp.async into a per-warp
+// ring of RrStages planes in shared memory, RrStages - 3 planes ahead of
+// the one it computes: the copies hold no registers, and a lane reads
+// back only what it copied itself, so the ring needs no barrier, only
+// cp.async.wait_group.  Points outside the grid are zero-filled by the
+// copy.  (Arrays that do not start on a pair, VEC false, are staged by
+// plain loads and stores.)  With loads a plane ahead in registers, as in
+// kernel C, the walk ran 6% slower at 512^3; with its arithmetic cut to
+// one add a point it runs 94% of its time: B is held by this load stream,
+// x with its halo rows and b, not by its arithmetic (PERF.md).  The
+// residual is formed once at each fine point, from x in registers; the
+// lane keeps the even plane's residuals and, at the odd plane, adds the x
+// pairs, then the y pairs, then the z pair, and writes its two coarse
+// values, neighbouring lanes on neighbouring z.  Every product and sum is
+// rounded on its own (the _rn intrinsics, never contracted into an FMA),
+// in the order of the plain version, and the result is rounded once to
+// the storage type: the kernel has the plain version's bits.  (The Pallas
+// kernel's 0/1 pairing matmuls were a Mosaic work-around for strided
+// addressing and are not ported; in bf16 it rounded the pair sums twice.)
+// No per-point division: coarse indices are the lane's own, shifted.
+// ---------------------------------------------------------------------------
+
+// planes in a warp's ring (31 KB of shared memory a block in bf16, 42 KB
+// in f32), and blocks an SM must hold (the register cap: 80 registers in
+// bf16, 128 in f32), by storage type
+template <typename T> struct RrStages { enum { value = sizeof(T) == 2 ? 6 : 4 }; };
+template <typename T> struct RrResident { enum { value = sizeof(T) == 2 ? 6 : 4 }; };
+
+// One plane of a warp's loads, lane by lane
+template <typename T> struct RrStage {
+    typename PairOf<T>::type x[WK_R + 2][WK_TZ];  // rows j0 - 1 .. j0 + WK_R
+    typename PairOf<T>::type b[WK_R][WK_TZ];
+    typename PairOf<T>::type z[2][WK_R];          // lane 0's, lane 31's halo pairs
+};
+
+// Copy the pair at src to dst (shared), or zeros where ok is false
+template <bool VEC, typename P, typename T>
+__device__ __forceinline__ void stage_pair(P* dst, const T* __restrict__ src, bool ok) {
+    if (VEC) {
+        const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+                     "n"(sizeof(P)), "r"(ok ? (int)sizeof(P) : 0)
+                     : "memory");
+    } else {
+        *dst = ok ? load_pair<false>(src, 0) : zero_of<P>();
+    }
+}
+
+template <bool VEC, typename T>
+__device__ __forceinline__ void rr_stage(RrStage<T>& st, const T* __restrict__ x,
+                                         const T* __restrict__ b, const WalkLane& l,
+                                         int64_t p, bool in) {
+    const int lane = threadIdx.x;
+    in = in && p >= 0 && p < l.nx && l.rows > 0;
+    // out-of-grid copies read nothing: they point at the array's start
+    const int64_t q = in ? p * l.plane + l.j0 * l.nz + l.k0 : 0;
+#pragma unroll
+    for (int r = -1; r <= WK_R; ++r) {
+        const bool ok = in && (r < 0 ? l.top : r == WK_R ? l.bot : r < l.rows);
+        stage_pair<VEC>(&st.x[r + 1][lane], x + (ok ? q + r * l.nz : 0), ok);
+    }
+#pragma unroll
+    for (int r = 0; r < WK_R; ++r) {
+        const bool ok = in && r < l.rows;
+        stage_pair<VEC>(&st.b[r][lane], b + (ok ? q + r * l.nz : 0), ok);
+    }
+    if (l.zdir != 0) {
+        // the pair holding z point k0 - 1 (lane 0) or k0 + 2 (lane 31)
+        const int64_t kp = l.zdir < 0 ? l.k0 - 2 : l.k0 + 2;
+        const bool zin = in && kp >= 0 && kp < l.nz;
+#pragma unroll
+        for (int r = 0; r < WK_R; ++r) {
+            const bool ok = zin && r < l.rows;
+            stage_pair<VEC>(&st.z[l.zdir > 0][r], x + (ok ? q + r * l.nz + (kp - l.k0) : 0),
+                            ok);
+        }
+    }
+}
+
+__device__ __forceinline__ void stage_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void stage_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// b - A c at one point in the plain version's order, op by op
+__device__ __forceinline__ float residual_rn(float bv, float diag, float off, float c,
+                                             float xm, float xp, float ym, float yp,
+                                             float zm, float zp) {
+    const float t = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(xm, xp), ym), yp),
+                              __fadd_rn(zm, zp));
+    return __fsub_rn(bv, __fadd_rn(__fmul_rn(diag, c), __fmul_rn(off, t)));
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(WK_NT, RrResident<T>::value) residual_restrict_kernel(
+    const T* __restrict__ x, const T* __restrict__ b, T* __restrict__ rc, int64_t nx,
+    int64_t ny, int64_t nz, int64_t slab, float diag, float off, float s8) {
+    constexpr int P = RrStages<T>::value;
+    __shared__ __align__(16) unsigned char rings[sizeof(RrStage<T>) * WK_WY * P];
+    RrStage<T>* ring = reinterpret_cast<RrStage<T>*>(rings) + threadIdx.y * P;
+    const int lane = threadIdx.x;
+    const WalkLane l = walk_lane(nx, ny, nz);
+    const int64_t nzc = nz / 2, cplane = (ny / 2) * nzc;
+    const int64_t kc = l.k0 / 2, cy0 = l.j0 / 2;
+    const int64_t i0 = (int64_t)blockIdx.z * slab;
+    const int64_t i1 = i0 + slab < nx ? i0 + slab : nx;
+
+    // the ring holds planes i0 - 1 .. i1, plane p at (p - i0 + 1) % P; the
+    // first P - 1 go out now
+#pragma unroll
+    for (int s = 0; s < P - 1; ++s) {
+        rr_stage<VEC>(ring[s], x, b, l, i0 - 1 + s, i0 - 1 + s <= i1);
+        stage_commit();
+    }
+    stage_wait<P - 3>();    // planes i0 - 1 and i0 are in
+    // x at planes i-1, i and i+1; the residuals of the pair's even plane
+    float2 prev[WK_R], cur[WK_R], next[WK_R], even[WK_R];
+#pragma unroll
+    for (int r = 0; r < WK_R; ++r) {
+        prev[r] = to_f2(ring[0].x[r + 1][lane]);
+        cur[r] = to_f2(ring[1].x[r + 1][lane]);
+    }
+    int s_cur = 1;          // the slot of plane i
+    for (int64_t i = i0; i < i1; i += 2) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int64_t ih = i + h;
+            // plane ih + P - 2 goes into the slot of plane ih - 2
+            const int s_old = s_cur < 2 ? s_cur + P - 2 : s_cur - 2;
+            const int s_next = s_cur == P - 1 ? 0 : s_cur + 1;
+            rr_stage<VEC>(ring[s_old], x, b, l, ih + P - 2, ih + P - 2 <= i1);
+            stage_commit();
+            stage_wait<P - 3>();    // plane ih + 1 is in
+            const RrStage<T>& st = ring[s_cur];
+#pragma unroll
+            for (int r = 0; r < WK_R; ++r) next[r] = to_f2(ring[s_next].x[r + 1][lane]);
+#pragma unroll
+            for (int r = 0; r < WK_R; ++r) {
+                const float up = __shfl_up_sync(0xffffffffu, cur[r].y, 1);
+                const float down = __shfl_down_sync(0xffffffffu, cur[r].x, 1);
+                const float zw = lane == 0 ? to_f2(st.z[0][r]).y : up;
+                const float ze = lane == WK_TZ - 1 ? to_f2(st.z[1][r]).x : down;
+                const float2 yn = r == 0 ? to_f2(st.x[0][lane]) : cur[r - 1];
+                const float2 ys = r == WK_R - 1 ? to_f2(st.x[WK_R + 1][lane]) : cur[r + 1];
+                const float2 bv = to_f2(st.b[r][lane]);
+                float2 res;
+                res.x = residual_rn(bv.x, diag, off, cur[r].x, prev[r].x, next[r].x, yn.x,
+                                    ys.x, zw, cur[r].y);
+                res.y = residual_rn(bv.y, diag, off, cur[r].y, prev[r].y, next[r].y, yn.y,
+                                    ys.y, cur[r].x, ze);
+                if (h == 0)
+                    even[r] = res;
+                else  // the x pair
+                    even[r] = make_float2(__fadd_rn(even[r].x, res.x),
+                                          __fadd_rn(even[r].y, res.y));
+            }
+            if (h == 1) {
+#pragma unroll
+                for (int c = 0; c < WK_R / 2; ++c) {
+                    if (2 * c >= l.rows) continue;
+                    // the y pair at each z point, then the z pair
+                    const float s0 = __fadd_rn(even[2 * c].x, even[2 * c + 1].x);
+                    const float s1 = __fadd_rn(even[2 * c].y, even[2 * c + 1].y);
+                    store(rc, (ih >> 1) * cplane + (cy0 + c) * nzc + kc,
+                          __fmul_rn(s8, __fadd_rn(s0, s1)));
+                }
+            }
+#pragma unroll
+            for (int r = 0; r < WK_R; ++r) {
+                prev[r] = cur[r];
+                cur[r] = next[r];
+            }
+            s_cur = s_next;
+        }
+    }
+    stage_wait<0>();        // no copy outlives the block
+}
+
+template <typename T>
+cudaError_t launch_residual_restrict(const void* x, const void* b, void* rc, int64_t nx,
+                                     int64_t ny, int64_t nz, int64_t slab, float diag,
+                                     float off, float s8, cudaStream_t s) {
+    const dim3 grid = walk_grid(nx, ny, nz, slab);
+    const dim3 block(WK_TZ, WK_WY);
+    if (pair_aligned(x, 2 * sizeof(T)) && pair_aligned(b, 2 * sizeof(T)))
+        residual_restrict_kernel<T, true><<<grid, block, 0, s>>>(
+            static_cast<const T*>(x), static_cast<const T*>(b), static_cast<T*>(rc), nx, ny,
+            nz, slab, diag, off, s8);
+    else
+        residual_restrict_kernel<T, false><<<grid, block, 0, s>>>(
+            static_cast<const T*>(x), static_cast<const T*>(b), static_cast<T*>(rc), nx, ny,
+            nz, slab, diag, off, s8);
+    return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Kernel A, kind jacobi_dot, on f32 and bf16 storage: the warp walk
+//
+// y = x + omega (b - A x) and b . y in one pass (the kind jacobi_dot of
+// ops/stencil_pallas.py:stencil3d_apply_pallas), PCG's r . z taken in the
+// multigrid cycle's last sweep.  f64 grids take apply_kernel's walk.
+//
+// Bound: memory bytes, reads of x and b and the write of y: 8 bytes a
+// point from bf16 into f32 (1.07 GB at 512^3, 0.321 ms at 3.35 TB/s).
+//
+// Design: the warp walk above, over any grid (nz may be odd: then the
+// scalar loads).  Each point's y is stencil7 and then the expression of
+// apply_kernel's Jacobi kinds, so y has the bits of the kind jacobi.  A
+// lane adds b . y over its points in an f32 register for its whole walk;
+// each warp then sums its lanes by xor shuffles in a fixed order and
+// writes one partial, with no block barrier; sum_partials adds the
+// partials in a fixed order.  No float atomics: two launches give equal
+// bits.  (apply_kernel's dot kinds write one partial a block after a
+// block-wide reduction behind __syncthreads.)
+// ---------------------------------------------------------------------------
+
+template <typename TX, typename TO, bool VEC>
+__global__ void __launch_bounds__(WK_NT, WalkResident<TX>::value) jacobi_dot_kernel(
+    const TX* __restrict__ x, const TX* __restrict__ b, TO* __restrict__ y,
+    float* __restrict__ partials, int64_t nx, int64_t ny, int64_t nz, int64_t slab,
+    float diag, float off, float omega) {
+    const WalkLane l = walk_lane(nx, ny, nz);
+    const int64_t i0 = (int64_t)blockIdx.z * slab;
+    const int64_t i1 = i0 + slab < nx ? i0 + slab : nx;
+
+    float2 prev[WK_R], cur[WK_R], next[WK_R];
+    {
+        const WalkOwn<TX> a = walk_own<VEC>(x, l, i0 - 1);
+        const WalkOwn<TX> c = walk_own<VEC>(x, l, i0);
+#pragma unroll
+        for (int r = 0; r < WK_R; ++r) {
+            prev[r] = to_f2(a.x[r]);
+            cur[r] = to_f2(c.x[r]);
+        }
+    }
+    WalkOwn<TX> own = walk_own<VEC>(x, l, i0 + 1);
+    WalkEdge<TX> edge = walk_edge<VEC>(x, b, l, i0, true);
+    float acc = 0.f;
+    for (int64_t i = i0; i < i1; ++i) {
+#pragma unroll
+        for (int r = 0; r < WK_R; ++r) next[r] = to_f2(own.x[r]);
+        const WalkEdge<TX> d = edge;
+        own = walk_own<VEC>(x, l, i + 1 < i1 ? i + 2 : -1);
+        edge = walk_edge<VEC>(x, b, l, i + 1, i + 1 < i1);
+        const int64_t q = i * l.plane + l.j0 * nz + l.k0;
+#pragma unroll
+        for (int r = 0; r < WK_R; ++r) {
+            const Taps t = taps_of(cur, d, r);
+            const float2 bv = to_f2(d.b[r]);
+            float2 v;
+            v.x = stencil7(diag, off, cur[r].x, prev[r].x, next[r].x, t.yn.x, t.ys.x, t.zw,
+                           cur[r].y);
+            v.x = cur[r].x + omega * (bv.x - v.x);
+            v.y = stencil7(diag, off, cur[r].y, prev[r].y, next[r].y, t.yn.y, t.ys.y,
+                           cur[r].x, t.ze);
+            v.y = cur[r].y + omega * (bv.y - v.y);
+            if (r < l.rows) {
+                store_pts<VEC>(y, q + r * nz, v, l.pts);
+                acc += bv.x * v.x;
+                if (l.pts == 2) acc += bv.y * v.y;
+            }
+        }
+#pragma unroll
+        for (int r = 0; r < WK_R; ++r) {
+            prev[r] = cur[r];
+            cur[r] = next[r];
+        }
+    }
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (threadIdx.x == 0)
+        partials[((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * (gridDim.x * WK_WY) +
+                 (int64_t)blockIdx.x * WK_WY + threadIdx.y] = acc;
+}
+
+template <typename TX, typename TO>
+cudaError_t launch_jacobi_dot(const void* x, const void* b, void* y, void* partials,
+                              void* dot, int64_t nx, int64_t ny, int64_t nz, int64_t slab,
+                              float diag, float off, float omega, cudaStream_t s) {
+    const dim3 grid = walk_grid(nx, ny, nz, slab);
+    const dim3 block(WK_TZ, WK_WY);
+    const bool vec = nz % 2 == 0 && pair_aligned(x, 2 * sizeof(TX)) &&
+                     pair_aligned(b, 2 * sizeof(TX)) && pair_aligned(y, 2 * sizeof(TO));
+    if (vec)
+        jacobi_dot_kernel<TX, TO, true><<<grid, block, 0, s>>>(
+            static_cast<const TX*>(x), static_cast<const TX*>(b), static_cast<TO*>(y),
+            static_cast<float*>(partials), nx, ny, nz, slab, diag, off, omega);
+    else
+        jacobi_dot_kernel<TX, TO, false><<<grid, block, 0, s>>>(
+            static_cast<const TX*>(x), static_cast<const TX*>(b), static_cast<TO*>(y),
+            static_cast<float*>(partials), nx, ny, nz, slab, diag, off, omega);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    sum_partials<float><<<1, FINISH_THREADS, 0, s>>>(
+        static_cast<const float*>(partials), (int64_t)grid.x * grid.y * grid.z * WK_WY,
+        static_cast<float*>(dot));
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -735,30 +1135,54 @@ int stencil3d_axpy_mv_dot(int dtype, const void* z, const void* p,
 }
 
 // x, b: fine (nx, ny, nz), even dims; rc: coarse (nx/2, ny/2, nz/2); all of
-// one type.  s8 = scale / 8.
+// one type.  slab: x planes a block walks, even (ops/stencil3d.py
+// walk_slab).  s8 = scale / 8.
 int stencil3d_residual_restrict(int dtype, const void* x, const void* b,
                                 void* rc, int64_t nx, int64_t ny, int64_t nz,
-                                float diag, float off, float s8, void* stream) {
-    if (nx < 2 || ny < 2 || nz < 2 || nx % 2 || ny % 2 || nz % 2)
+                                int64_t slab, float diag, float off, float s8,
+                                void* stream) {
+    if (nx < 2 || ny < 2 || nz < 2 || nx % 2 || ny % 2 || nz % 2 || slab % 2 ||
+        !walk_fits(nx, ny, slab))
         return cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const unsigned blocks = point_blocks((nx / 2) * (ny / 2) * (nz / 2));
     if (dtype == F32)
-        residual_restrict_kernel<float><<<blocks, POINT_THREADS, 0, s>>>(
-            static_cast<const float*>(x), static_cast<const float*>(b),
-            static_cast<float*>(rc), nx, ny, nz, diag, off, s8);
-    else if (dtype == BF16)
-        residual_restrict_kernel<bf16><<<blocks, POINT_THREADS, 0, s>>>(
-            static_cast<const bf16*>(x), static_cast<const bf16*>(b),
-            static_cast<bf16*>(rc), nx, ny, nz, diag, off, s8);
-    else
+        return launch_residual_restrict<float>(x, b, rc, nx, ny, nz, slab, diag, off, s8, s);
+    if (dtype == BF16)
+        return launch_residual_restrict<bf16>(x, b, rc, nx, ny, nz, slab, diag, off, s8, s);
+    return cudaErrorInvalidValue;
+}
+
+// Number of partial sums stencil3d_jacobi_dot writes (one a warp).
+int64_t stencil3d_jacobi_dot_partials(int64_t nx, int64_t ny, int64_t nz, int64_t slab) {
+    const dim3 g = walk_grid(nx, ny, nz, slab);
+    return (int64_t)g.x * g.y * g.z * WK_WY;
+}
+
+// Kernel A's kind jacobi_dot on f32 or bf16 storage (dtype codes 0, 1 for
+// x and b, and for y): y = x + omega (b - A x) and dot = b . y.  slab: x
+// planes a block walks (ops/stencil3d.py walk_slab); partials
+// (stencil3d_jacobi_dot_partials values) and dot (one value): f32.
+int stencil3d_jacobi_dot(int x_dtype, int out_dtype, const void* x, const void* b,
+                         void* y, void* partials, void* dot, int64_t nx, int64_t ny,
+                         int64_t nz, int64_t slab, float diag, float off, float omega,
+                         void* stream) {
+    if (nx < 1 || ny < 1 || nz < 1 || !walk_fits(nx, ny, slab))
         return cudaErrorInvalidValue;
-    return cudaGetLastError();
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (x_dtype == F32 && out_dtype == F32)
+        return launch_jacobi_dot<float, float>(x, b, y, partials, dot, nx, ny, nz, slab, diag, off, omega, s);
+    if (x_dtype == F32 && out_dtype == BF16)
+        return launch_jacobi_dot<float, bf16>(x, b, y, partials, dot, nx, ny, nz, slab, diag, off, omega, s);
+    if (x_dtype == BF16 && out_dtype == F32)
+        return launch_jacobi_dot<bf16, float>(x, b, y, partials, dot, nx, ny, nz, slab, diag, off, omega, s);
+    if (x_dtype == BF16 && out_dtype == BF16)
+        return launch_jacobi_dot<bf16, bf16>(x, b, y, partials, dot, nx, ny, nz, slab, diag, off, omega, s);
+    return cudaErrorInvalidValue;
 }
 
 // x, b, out: fine (nx, ny, nz), even dims; e: coarse (nx/2, ny/2, nz/2);
 // all of one type.  slab: x planes a block walks (ops/stencil3d.py
-// prolong_jacobi_slab).
+// walk_slab).
 int stencil3d_prolong_jacobi(int dtype, const void* x, const void* b,
                              const void* e, void* out, int64_t nx, int64_t ny,
                              int64_t nz, int64_t slab, float diag, float off,

@@ -58,7 +58,11 @@ SIGNATURES = {
             [_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _D, _D, _P],
             _I),
         "stencil3d_residual_restrict": (
-            [_I, _P, _P, _P, _I64, _I64, _I64, _F, _F, _F, _P], _I),
+            [_I, _P, _P, _P, _I64, _I64, _I64, _I64, _F, _F, _F, _P], _I),
+        "stencil3d_jacobi_dot_partials": ([_I64, _I64, _I64, _I64], _I64),
+        "stencil3d_jacobi_dot": (
+            [_I, _I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _F, _F, _F,
+             _P], _I),
         "stencil3d_prolong_jacobi": (
             [_I, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _F, _F, _F, _P], _I),
     },

@@ -5,7 +5,9 @@ Five hand-written CUDA kernels (``csrc/stencil3d.cu``,
 ``csrc/df_residual.cu``) serve six wrappers:
 
 * ``stencil3d_apply`` (kernel A): ``A x`` with the fused epilogues of
-  kinds ``mv``, ``mv_dot``, ``residual``, ``jacobi`` and ``jacobi_dot``;
+  kinds ``mv``, ``mv_dot``, ``residual``, ``jacobi`` and ``jacobi_dot``
+  (on f32/bf16 storage the last is a warp walk of its own, with one
+  partial sum a warp);
 * ``stencil3d_mv_cast`` (kernel A, kind ``mv_cast``): ``(A x, x)`` both
   written at a narrower type, the entry of a bf16 multigrid cycle;
 * ``stencil3d_residual_restrict`` (kernel B);
@@ -28,7 +30,8 @@ summed in one order everywhere:
 
 Every kernel launch adds one to its entry in ``launch_counts()`` (the
 port's counts of all wrappers, kept in ``ops/build.py``); plain calls
-count nothing.
+count nothing.  The warp walks (kernels B and C, and the kind
+``jacobi_dot``) take their launch geometry from ``walk_slab``.
 """
 
 from __future__ import annotations
@@ -187,6 +190,8 @@ def stencil3d_apply(x: torch.Tensor, *extras: torch.Tensor, kind: str,
     nx, ny, nz = x.shape
     lib = build.load("stencil3d")
     y = torch.empty(x.shape, dtype=odt, device=x.device)
+    if kind == "jacobi_dot" and x.dtype != torch.float64:
+        return y, _jacobi_dot_walk(lib, x, extras[0], y, diag, off, omega)
     partials = dot = None
     if kind.endswith("_dot"):
         n = lib.stencil3d_apply_partials(nx, ny, nz)
@@ -202,6 +207,24 @@ def stencil3d_apply(x: torch.Tensor, *extras: torch.Tensor, kind: str,
     build.check(lib, rc, f"stencil3d_apply[{kind}]")
     build.launches[f"stencil3d_apply[{kind}]"] += 1
     return (y, dot.to(torch.float32)) if dot is not None else y
+
+
+def _jacobi_dot_walk(lib, x, b, y, diag, off, omega) -> torch.Tensor:
+    """Kind ``jacobi_dot`` on f32/bf16 storage: the warp walk
+    (``csrc/stencil3d.cu`` ``stencil3d_jacobi_dot``), one partial sum a
+    warp; writes ``y`` and returns the f32 dot."""
+    nx, ny, nz = x.shape
+    slab = walk_slab(x.shape)
+    partials = torch.empty(lib.stencil3d_jacobi_dot_partials(nx, ny, nz, slab),
+                           dtype=torch.float32, device=x.device)
+    dot = torch.empty((), dtype=torch.float32, device=x.device)
+    rc = lib.stencil3d_jacobi_dot(
+        _DTYPE_CODE[x.dtype], _DTYPE_CODE[y.dtype], x.data_ptr(), b.data_ptr(),
+        y.data_ptr(), partials.data_ptr(), dot.data_ptr(), nx, ny, nz, slab,
+        diag, off, omega, build.stream(x))
+    build.check(lib, rc, "stencil3d_apply[jacobi_dot]")
+    build.launches["stencil3d_apply[jacobi_dot]"] += 1
+    return dot
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +292,9 @@ def stencil3d_residual_restrict(x: torch.Tensor, b: torch.Tensor, *,
                                 diag: float, off: float,
                                 scale: float = 1.0) -> torch.Tensor:
     """Kernel B (replaces
-    ``stencil_pallas.stencil3d_residual_restrict_pallas``)."""
+    ``stencil_pallas.stencil3d_residual_restrict_pallas``), with the
+    plain version's bits: every product and sum rounded on its own in
+    the same order."""
     _check_grid("x", x)
     _check_grid("b", b, like=x, shape=x.shape)
     _check_even(x)
@@ -284,7 +309,7 @@ def stencil3d_residual_restrict(x: torch.Tensor, b: torch.Tensor, *,
                       device=x.device)
     rc = lib.stencil3d_residual_restrict(
         _DTYPE_CODE[x.dtype], x.data_ptr(), b.data_ptr(), rc_.data_ptr(), nx,
-        ny, nz, diag, off, scale / 8.0, build.stream(x))
+        ny, nz, walk_slab(x.shape), diag, off, scale / 8.0, build.stream(x))
     build.check(lib, rc, "stencil3d_residual_restrict")
     build.launches["stencil3d_residual_restrict"] += 1
     return rc_
@@ -313,22 +338,24 @@ def stencil3d_prolong_jacobi_plain(x: torch.Tensor, b: torch.Tensor,
     return out.to(x.dtype)
 
 
-# kernel C's block: a tile of (PJ_TY, PJ_TZ) coarse cells in (y, z)
-# (csrc/stencil3d.cu: PJ_CY * PJ_WY and PJ_TZ), walking at most PJ_SLAB x
-# planes
-PJ_TY, PJ_TZ, PJ_SLAB = 8, 32, 16
-PJ_MIN_BLOCKS = 1024     # about 8 blocks for each of the H100's 132 SMs
+# the block of the warp walks (kernels B and C, kernel A's jacobi_dot on
+# f32/bf16): a tile of WALK_TY fine rows by WALK_TZ fine z points
+# (csrc/stencil3d.cu: 4 rows a lane, 4 warps; a z pair a lane, 32 lanes),
+# walking at most WALK_SLAB x planes
+WALK_TY, WALK_TZ, WALK_SLAB = 16, 64, 16
+WALK_MIN_BLOCKS = 1024   # about 8 blocks for each of the H100's 132 SMs
 
 
-def prolong_jacobi_slab(shape) -> int:
-    """The x planes a block of kernel C walks on an even ``(nx, ny, nz)``
-    grid: ``PJ_SLAB``, halved (down to 2) while the grid would have fewer
-    than ``PJ_MIN_BLOCKS`` blocks, so that the cycle's small levels run as
-    many short walks instead of a few long ones."""
+def walk_slab(shape) -> int:
+    """The x planes a block of the warp walks takes on an ``(nx, ny,
+    nz)`` grid: ``WALK_SLAB``, halved (down to 2) while the grid would
+    have fewer than ``WALK_MIN_BLOCKS`` blocks, so that the cycle's small
+    levels run as many short walks instead of a few long ones.  Always
+    even: kernel B walks its planes in pairs from an even plane."""
     nx, ny, nz = shape
-    tiles = -(-(ny // 2) // PJ_TY) * -(-(nz // 2) // PJ_TZ)
-    slab = PJ_SLAB
-    while slab > 2 and tiles * -(-nx // slab) < PJ_MIN_BLOCKS:
+    tiles = -(-ny // WALK_TY) * -(-nz // WALK_TZ)
+    slab = WALK_SLAB
+    while slab > 2 and tiles * -(-nx // slab) < WALK_MIN_BLOCKS:
         slab //= 2
     return slab
 
@@ -350,7 +377,7 @@ def stencil3d_prolong_jacobi(x: torch.Tensor, b: torch.Tensor,
     out = torch.empty_like(x)
     rc = lib.stencil3d_prolong_jacobi(
         _DTYPE_CODE[x.dtype], x.data_ptr(), b.data_ptr(), e.data_ptr(),
-        out.data_ptr(), nx, ny, nz, prolong_jacobi_slab(x.shape), diag, off,
+        out.data_ptr(), nx, ny, nz, walk_slab(x.shape), diag, off,
         omega, build.stream(x))
     build.check(lib, rc, "stencil3d_prolong_jacobi")
     build.launches["stencil3d_prolong_jacobi"] += 1

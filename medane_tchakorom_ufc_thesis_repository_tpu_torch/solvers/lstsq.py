@@ -28,7 +28,11 @@ def lstsq_normal(R: torch.Tensor, rhs: torch.Tensor,
                  l2: float = 0.0) -> torch.Tensor:
     """argmin_a ||rhs - R a|| via the normal equations and Cholesky.
     ``l2`` adds Tikhonov damping; a jitter of ``eps * trace / s`` keeps the
-    factorization alive on a nearly rank-deficient basis."""
+    factorization alive on a nearly rank-deficient basis.
+
+    A Gram matrix that is still not positive definite gives an all-NaN
+    answer for that batch member, as ``jax.scipy.linalg.cho_factor`` does
+    in the JAX package: no exception and no host read."""
     Rt = R.transpose(-2, -1)
     g = full_matmul(Rt, R)
     s = g.shape[-1]
@@ -38,7 +42,9 @@ def lstsq_normal(R: torch.Tensor, rhs: torch.Tensor,
     jitter = torch.finfo(g.dtype).eps * torch.diagonal(
         g, dim1=-2, dim2=-1).sum(-1) / s
     g = g + jitter[..., None, None] * eye
-    c = torch.linalg.cholesky(g)
+    c, info = torch.linalg.cholesky_ex(g)
+    # cholesky_ex leaves a partial factor where it fails (info > 0)
+    c = torch.where((info != 0)[..., None, None], torch.nan, c)
     return torch.cholesky_solve(full_matmul(Rt, rhs[..., None]), c)[..., 0]
 
 

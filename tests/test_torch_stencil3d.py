@@ -155,6 +155,101 @@ class TestPlainVersusPallas:
         _assert_close(yt, yj, d)
 
 
+# the warp walks' edge shapes: 2^3, the cycle's 8^3, and a grid whose dims
+# are no multiple of the walk's tile; the Pallas kernels refuse most of
+# them (ny % 8, 16 or 32), and there the JAX package's own route at that
+# shape, its XLA formulation on the same values in f32, is the reference
+EDGE_SHAPES = [(2, 2, 2), (8, 8, 8), (38, 24, 130)]
+JD_COMBOS = [("f32", "f32"), ("bf16", "f32"), ("bf16", "bf16"),
+             ("f32", "bf16")]
+
+
+def _pallas_or(pallas, xla):
+    """The Pallas kernel's output in interpret mode, or ``xla()`` where
+    the kernel refuses the shape."""
+    try:
+        with pltpu.force_tpu_interpret_mode():
+            return pallas(), True
+    except ValueError as e:
+        assert "needs" in str(e), e
+        return xla(), False
+
+
+class TestPlainVersusJaxAtEdgeShapes:
+    @pytest.mark.parametrize("shape", EDGE_SHAPES)
+    @pytest.mark.parametrize("d", ["f32", "bf16"])
+    def test_residual_restrict(self, d, shape):
+        xj, xt = _pair(_np(shape, 16), d)
+        bj, bt = _pair(_np(shape, 17), d)
+        jop = jops.Stencil3D(*shape, diag=DIAG, off=OFF)
+        rj, pallas = _pallas_or(
+            lambda: sp.stencil3d_residual_restrict_pallas(
+                xj, bj, nx=shape[0], ny=shape[1], nz=shape[2], diag=DIAG,
+                off=OFF, scale=4.0),
+            lambda: 4.0 * jmg._restrict(jop.residual(
+                xj.astype(jnp.float32), bj.astype(jnp.float32)), shape))
+        assert not pallas      # no edge shape meets the Pallas tiling
+        rt = k.stencil3d_residual_restrict_plain(xt, bt, diag=DIAG, off=OFF,
+                                                 scale=4.0)
+        assert rt.shape == tuple(n // 2 for n in shape) and rt.dtype == TDT[d]
+        _assert_close(rt, rj, d)
+
+    @pytest.mark.parametrize("shape", EDGE_SHAPES)
+    @pytest.mark.parametrize("xd,od", JD_COMBOS)
+    def test_jacobi_dot(self, xd, od, shape):
+        xj, xt = _pair(_np(shape, 18), xd)
+        bj, bt = _pair(_np(shape, 19), xd)
+        jop = jops.Stencil3D(*shape, diag=DIAG, off=OFF)
+        (yj, dj), _ = _pallas_or(
+            lambda: sp.stencil3d_apply_pallas(
+                xj, bj, nx=shape[0], ny=shape[1], nz=shape[2], diag=DIAG,
+                off=OFF, kind="jacobi_dot", omega=OMEGA, out_dtype=JDT[od]),
+            lambda: jop.jacobi_sweep_dot(xj.astype(jnp.float32),
+                                         bj.astype(jnp.float32), OMEGA))
+        yt, dt_ = k.stencil3d_apply_plain(xt, bt, kind="jacobi_dot",
+                                          diag=DIAG, off=OFF, omega=OMEGA,
+                                          out_dtype=TDT[od])
+        assert yt.dtype == TDT[od] and dt_.dtype == torch.float32
+        _assert_close(yt, yj, od)
+        _assert_close(dt_, dj, "dot")
+
+
+class TestWalkSlab:
+    """``walk_slab``, the x planes a block of the warp walks (kernels B
+    and C, kernel A's jacobi_dot) takes: even, so that kernel B's pairs of
+    planes start on an even plane; its blocks cover every plane exactly
+    once; halved only while the grid has too few blocks."""
+
+    LEVELS_512 = [(n, n, n) for n in (512, 256, 128, 64, 32, 16, 8, 4)]
+
+    @pytest.mark.parametrize("shape", LEVELS_512 + [
+        (2, 2, 2), (38, 24, 130), (514, 258, 130), (37, 24, 130),
+        (4, 4, 4), (2, 16, 64)])
+    def test_even_and_covers_every_plane_once(self, shape):
+        nx, ny, nz = shape
+        slab = k.walk_slab(shape)
+        assert slab % 2 == 0 and 2 <= slab <= k.WALK_SLAB
+        planes = np.zeros(nx, int)
+        starts = range(0, nx, slab)
+        for i0 in starts:
+            i1 = min(i0 + slab, nx)
+            planes[i0:i1] += 1
+            if nx % 2 == 0:
+                assert i0 % 2 == 0 and (i1 - i0) % 2 == 0
+        assert (planes == 1).all()
+        tiles = -(-ny // k.WALK_TY) * -(-nz // k.WALK_TZ)
+        blocks = tiles * len(starts)
+        assert slab == 2 or blocks >= k.WALK_MIN_BLOCKS
+        if slab < k.WALK_SLAB:   # a longer slab would have too few blocks
+            assert tiles * -(-nx // (2 * slab)) < k.WALK_MIN_BLOCKS
+
+    def test_the_w_cycle_levels(self):
+        # 512^3 and 256^3 walk 16 planes a block (8192 and 1024 blocks);
+        # from 128^3 down the slab is 2
+        assert [k.walk_slab(s) for s in self.LEVELS_512] == \
+            [16, 16, 2, 2, 2, 2, 2, 2]
+
+
 class TestOperatorF64:
     """``Stencil3D``'s methods against the JAX operator in f64 (its XLA
     formulations on the CPU), flat and grid-shaped."""
