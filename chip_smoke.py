@@ -13,10 +13,7 @@ Run from the root of a checkout:
 run, for work on one of them; such a run prints no result lines.
 ``python3 chip_smoke.py kernels`` alone builds every kernel and holds
 kernels A-D, among them the warp walks of B and of A's ``jacobi_dot``,
-against their plain versions.  The phases of ``ON_REQUEST`` run only when
-named: ``variants`` builds scratch copies of ``csrc/stencil3d.cu`` with
-one change each and times them, the measurements behind the walks'
-register caps and behind where A's dot kinds lost their time.)
+against their plain versions.)
 
 It imports the port (``medane_tchakorom_ufc_thesis_repository_tpu_torch``)
 from this checkout and nothing of JAX, and:
@@ -32,9 +29,8 @@ from this checkout and nothing of JAX, and:
    a multiple of its tile) and on grids at an odd offset (its scalar
    path), kernel B at the same shapes and at the W-cycle's 256^3, 64^3
    and 16^3, bit for bit; A's ``jacobi_dot`` also at 256^3, its y bit
-   for bit the kind ``jacobi``'s, two launches bit-equal, and kernel A's
-   column walk of it timed beside it; kernel E (the 2D
-   apply) at 8192^2, the two 2048x4096 strips of 4096^2, an s=4 panel
+   for bit the kind ``jacobi``'s and two launches bit-equal; kernel E
+   (the 2D apply) at 8192^2, the two 2048x4096 strips of 4096^2, an s=4 panel
    of 4096^2, 3x37x130 and 4x4 in f32 and f64; kernels F and G (VecMDot
    and VecMAXPY) on the GMRES(20) basis of 4096^2 strips, (2, 21, 2^23),
    with a f32, bf16 and f64 basis at several live-row counts, and at an
@@ -67,7 +63,9 @@ from this checkout and nothing of JAX, and:
    must converge in at most 3 passes (PCG 5 and 6 iterations, as every
    earlier run), to a relative residual <= 1e-8 recomputed in f64 on the
    card, with max|x - 1| <= 1e-6.  At 512^3
-   the solve time is the median of 3 more runs;
+   the solve time is the median of 3 more runs, and one more run, neither
+   counted nor timed, records the launches of kernels A-D by grid, each
+   grid's launch then timed alone in a CUDA graph;
 5a. fused-direction phase, 512^3: ``df_iterative_refinement`` around
    ``cg(..., precond_dot=W-cycle, matvec_dot=op.mv_dot,
    matvec_axpy_dot=op.axpy_mv_dot)`` and the same without the hook.
@@ -189,9 +187,6 @@ ENTRIES = [
 PHASES = ("kernels", "kernels2d", "fusedkernels", "sparse", "northstar",
           "fused", "northstar2d", "cycle", "golden", "thesis", "inner",
           "calibration", "api")
-# phases that run only when named: scratch builds and measurements behind
-# the kernels' design choices (PERF.md)
-ON_REQUEST = ("variants",)
 # the card's published peaks: memory rate, and f32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = 67e12
@@ -258,14 +253,12 @@ def main() -> None:
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
     only = sys.argv[1:]
-    unknown = [p for p in only if p not in PHASES + ON_REQUEST]
+    unknown = [p for p in only if p not in PHASES]
     if unknown:
-        sys.exit(f"chip_smoke: unknown phases {unknown}; known: "
-                 f"{PHASES + ON_REQUEST}")
+        sys.exit(f"chip_smoke: unknown phases {unknown}; known: {PHASES}")
     if {"calibration", "api"} & set(only):
         only.append("sparse")      # they take its matrices and timings
-    todo = ([p for p in PHASES + ON_REQUEST if p in only] if only
-            else list(PHASES))
+    todo = [p for p in PHASES if not only or p in only]
 
     t_all = time.perf_counter()
     report, launches, cases = {}, {}, {}
@@ -273,8 +266,6 @@ def main() -> None:
         t0 = time.perf_counter()
         if phase == "kernels":
             report.update(kernel_phase(torch, k, dev))
-        elif phase == "variants":
-            variants_phase(torch, k, dev)
         elif phase == "kernels2d":
             report.update(kernel_phase_2d(torch, dev))
         elif phase == "fusedkernels":
@@ -377,34 +368,7 @@ def check(torch, what: str, out, ref, tol: str, dot_floor: float = 0.0) -> float
     return float(err.max())
 
 
-def median_ms(torch, fn, reps: int = 10, batches: int = 3) -> float:
-    """A call's time on the card: CUDA events around a batch of ``reps``
-    calls back to back, the elapsed time over the count, the median of
-    ``batches`` batches after a warm-up.  The host enqueues a call while
-    the card runs the one before, so the host's time per call (the
-    wrapper's checks and the launch) stays out unless it is longer than
-    the call's device time."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(batches):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    return statistics.median(times)
-
-
-def launch_ms(torch, fn, reps: int = 20) -> float:
-    """A call's time taken one launch at a time: events around each call
-    alone, after a synchronisation, median of ``reps``.  The card idles
-    while the host runs the wrapper, so this adds the host's time per
-    call to the kernel's."""
+def median_ms(torch, fn, reps: int = 20) -> float:
     for _ in range(2):
         fn()
     times = []
@@ -511,32 +475,6 @@ def hold_jacobi_dot(torch, k, x, b, odt, what: str) -> None:
     check(torch, f"jacobi_dot dot, two launches {what}", d2, d1, "bits")
 
 
-def apply_kernel_jacobi_dot_ms(torch, x, b, odt) -> float:
-    """The time of jacobi_dot on kernel A's column walk with one
-    partial a block (``apply_kernel``, which the wrapper keeps for f64),
-    called through the library's ``stencil3d_apply`` entry."""
-    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import build
-    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import stencil3d as k
-
-    lib = build.load("stencil3d")
-    nx, ny, nz = x.shape
-    y = torch.empty(x.shape, dtype=odt, device=x.device)
-    partials = torch.empty(lib.stencil3d_apply_partials(nx, ny, nz),
-                           dtype=torch.float32, device=x.device)
-    dot = torch.empty((), dtype=torch.float32, device=x.device)
-
-    def call():
-        build.check(lib, lib.stencil3d_apply(
-            k._KIND_CODE["jacobi_dot"], k._DTYPE_CODE[x.dtype], k._DTYPE_CODE[odt], x.data_ptr(),
-            b.data_ptr(), y.data_ptr(), None, partials.data_ptr(),
-            dot.data_ptr(), nx, ny, nz, DIAG, OFF, OMEGA, build.stream(x)),
-            "apply_kernel jacobi_dot")
-
-    log("stencil3d_apply[jacobi_dot] bf16->f32 512^3 on the column walk, timed "
-        f"one launch at a time: {launch_ms(torch, call):.3f} ms")
-    return median_ms(torch, call)
-
-
 def kernel_phase(torch, k, dev) -> dict:
     torch.backends.cudnn.allow_tf32 = False     # the yardsticks in full f32
     dt = {"f32": torch.float32, "bf16": torch.bfloat16, "f64": torch.float64}
@@ -576,10 +514,6 @@ def kernel_phase(torch, k, dev) -> dict:
             r = report[name]
             r["ms"] = median_ms(torch, kernel)
             r["plain_ms"] = median_ms(torch, plain)
-            if name in ("stencil3d_residual_restrict",
-                        "stencil3d_apply[jacobi_dot]"):
-                log(f"{name} {dts} 512^3: kernel {launch_ms(torch, kernel):.3f}"
-                    f" ms timed one launch at a time")
             r.update(bound(nbytes(*inputs, *outs),
                            flops_per_point * inputs[0].numel()))
             if library is not None:
@@ -615,10 +549,6 @@ def kernel_phase(torch, k, dev) -> dict:
                              if kind == "jacobi_dot" else None))
                 if kind == "jacobi_dot" and xd != "f64":
                     hold_jacobi_dot(torch, k, x, b, odt, f"{shape} {xd}->{od}")
-            if shape == FULL and (xd, od) == timed["stencil3d_apply[jacobi_dot]"]:
-                log("stencil3d_apply[jacobi_dot] bf16->f32 512^3 on the column "
-                    f"walk (apply_kernel, per-block partials): "
-                    f"{apply_kernel_jacobi_dot_ms(torch, x, b, odt):.3f} ms")
             if shape == LEVEL0:
                 del x, b
                 continue
@@ -719,228 +649,6 @@ def kernel_phase(torch, k, dev) -> dict:
         log(f"kernel D: {shape} ok")
     torch.cuda.empty_cache()
     return report
-
-
-# ---------------------------------------------------------------------------
-# Variants phase (on request only)
-# ---------------------------------------------------------------------------
-
-# Scratch copies of csrc/stencil3d.cu, each with one change: (label,
-# [(text, replacement), ...]).  The dot-kind variants change kernel A's
-# column walk (apply_kernel), which served the kind jacobi_dot before its
-# warp walk; the cap variants the blocks an SM must hold for the warp walks
-# (bf16, f32 storage), the register cap of kernels B and jacobi_dot.
-_BLOCK_SUM = """    if (has_sum(KIND)) {
-        const TC s = block_sum<NT>(acc);
-        if (threadIdx.x == 0 && threadIdx.y == 0)
-            partials[blockIdx.x + (int64_t)gridDim.x *
-                     (blockIdx.y + (int64_t)gridDim.y * blockIdx.z)] = s;
-    }"""
-_WARP_SUM = """    if (has_sum(KIND)) {
-        for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-        if (threadIdx.x == 0)
-            partials[(blockIdx.x + (int64_t)gridDim.x *
-                      (blockIdx.y + (int64_t)gridDim.y * blockIdx.z)) * BY +
-                     threadIdx.y] = acc;
-    }"""
-_FINISH = "        const int64_t n = (int64_t)grid.x * grid.y * grid.z;"
-_RESIDENT = ("template <typename T> struct WalkResident "
-             "{ enum { value = sizeof(T) == 2 ? 6 : 4 }; };")
-VARIANTS = [
-    ("as is", []),
-    ("no accumulate", [("if (KIND == JACOBI_DOT) acc += bv * v;", "")]),
-    ("warp partials", [(_BLOCK_SUM, _WARP_SUM),
-                       (_FINISH, _FINISH.replace(";", " * BY;"))]),
-    ("no finishing pass", [("    if (has_sum(KIND)) {\n" + _FINISH,
-                            "    if (false) {\n" + _FINISH)]),
-] + [(f"walk cap {bf} / {f32}", [(_RESIDENT, _RESIDENT.replace(
-    "? 6 : 4", f"? {bf} : {f32}"))]) for bf, f32 in ((1, 1), (4, 3), (5, 5),
-                                                       (8, 6))]
-
-
-def _prefetch(plane: str, depth: int, T: str) -> str:
-    """Lines that ask L2 for the x and b rows of plane ``plane + depth``,
-    one request a 128-byte line (lane 0, and lane 16 for f32)."""
-    return f"""
-            {{
-                const int64_t pf = {plane} + {depth};
-                if (pf < i1 && l.rows > 0 && threadIdx.x % (64 / sizeof({T})) == 0) {{
-                    const int64_t qp = pf * l.plane + l.j0 * l.nz + l.k0;
-                    for (int r = 0; r < l.rows; ++r) {{
-                        asm volatile("prefetch.global.L2 [%0];" :: "l"(x + qp + r * l.nz));
-                        asm volatile("prefetch.global.L2 [%0];" :: "l"(b + qp + r * l.nz));
-                    }}
-                }}
-            }}"""
-
-
-_JD_EDGE = "        edge = walk_edge<VEC>(x, b, l, i + 1, i + 1 < i1);"
-VARIANTS += [(f"walk prefetch {depth}", [
-    (_JD_EDGE, _JD_EDGE + _prefetch("i", depth, "TX"))]) for depth in (2, 4)]
-# kernel B's ring: planes (bf16, f32) and blocks an SM must hold
-_RR_STAGES = ("template <typename T> struct RrStages "
-              "{ enum { value = sizeof(T) == 2 ? 6 : 4 }; };")
-_RR_RESIDENT = ("template <typename T> struct RrResident "
-                "{ enum { value = sizeof(T) == 2 ? 6 : 4 }; };")
-VARIANTS += [(f"walk B ring {pb} / {pf}, caps {cb} / {cf}", [
-    (_RR_STAGES, _RR_STAGES.replace("? 6 : 4", f"? {pb} : {pf}")),
-    (_RR_RESIDENT, _RR_RESIDENT.replace("? 6 : 4", f"? {cb} : {cf}"))])
-    for pb, pf, cb, cf in ((4, 3, 8, 6), (5, 3, 7, 6), (8, 4, 5, 5),
-                           (6, 4, 7, 5))]
-# kernel B with its arithmetic cut to one add a point: what the staged
-# loads alone take
-_RR_MATH = """    return __fsub_rn(bv, __fadd_rn(__fmul_rn(diag, c), __fmul_rn(off, t)));"""
-VARIANTS += [("walk B loads only", [(_RR_MATH, "    return __fadd_rn(bv, c);")])]
-
-
-def build_variants(build):
-    """Build every variant beside the library (one ``nvcc`` each, all
-    started together); return {label: (library, ptxas lines)}."""
-    import concurrent.futures
-    import ctypes
-    import re
-
-    out_dir = build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    src = (build.CSRC / "stencil3d.cu").read_text()
-
-    def one(i, label, edits):
-        text = src
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise AssertionError(f"variant {label!r}: {old[:50]!r} found "
-                                     f"{text.count(old)} times")
-            text = text.replace(old, new)
-        cu, so = out_dir / f"v{i}.cu", out_dir / f"libv{i}.so"
-        cu.write_text(text)
-        proc = subprocess.run(
-            [build.nvcc_path(), *build.NVCC_FLAGS,
-             *build.EXTRA_FLAGS["stencil3d"], "-o", str(so), str(cu)],
-            capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"variant {label!r}: nvcc failed\n{proc.stderr}")
-        return label, so, proc.stderr
-
-    libs = {}
-    with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:
-        for label, so, log_ in pool.map(lambda a: one(*a), [
-                (i, lbl, ed) for i, (lbl, ed) in enumerate(VARIANTS)]):
-            lib = ctypes.CDLL(str(so))
-            for fn, (argtypes, restype) in build.SIGNATURES["stencil3d"].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = restype
-            # registers and spills of the kernels timed here
-            regs = []
-            for chunk in log_.split("Compiling entry function '")[1:]:
-                entry = chunk.split("'", 1)[0]
-                timed = ("apply_kernelILi4E13__nv_bfloat16f" in entry
-                         or "apply_kernelILi3E13__nv_bfloat16f" in entry
-                         or ("residual_restrict_kernel" in entry
-                             or "jacobi_dot_kernelI13__nv_bfloat16f" in entry)
-                         and "Lb1E" in entry)
-                used = re.search(r"Used (\d+) registers", chunk)
-                spill = re.search(r"(\d+) bytes spill stores", chunk)
-                if timed and used:
-                    regs.append(f"{entry[:72]}: {used.group(1)} registers, "
-                                f"{spill.group(1) if spill else '?'} bytes "
-                                f"spill stores")
-            libs[label] = (lib, regs)
-    return libs
-
-
-def variants_phase(torch, k, dev) -> None:
-    """Scratch copies of ``csrc/stencil3d.cu`` with one change each
-    (``VARIANTS``), timed at 512^3 in turns with the library as built:
-    where kernel A's dot kinds lose their time (the kind jacobi_dot from
-    bf16 into f32 on kernel A's column walk, against the same walk without
-    the accumulation, with one partial a warp instead of a block barrier,
-    without the finishing pass, and the kind jacobi with no sum at all),
-    and the register caps of the warp walks (kernel B in bf16 and f32,
-    jacobi_dot from bf16 into f32), each cap's outputs held to the
-    library's bits.  Prints each kernel's registers from ``ptxas``."""
-    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import build
-
-    libs = build_variants(build)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(3)
-    x = torch.randn(FULL, generator=gen, device=dev)
-    b = torch.randn(FULL, generator=gen, device=dev)
-    n = x.numel()
-    code = k._DTYPE_CODE
-    slab = k.walk_slab(FULL)
-    parts = torch.empty(8 * n // 4096 + 1024, device=dev)
-    dot = torch.empty((), device=dev)
-    xs = {d: (x.to(d), b.to(d)) for d in (torch.bfloat16, torch.float32)}
-
-    def apply_call(lib, kind, odt, y):
-        xb, bb = xs[torch.bfloat16]
-        return lambda: build.check(lib, lib.stencil3d_apply(
-            kind, code[xb.dtype], code[odt], xb.data_ptr(), bb.data_ptr(),
-            y.data_ptr(), None, parts.data_ptr(), dot.data_ptr(), *FULL, DIAG,
-            OFF, OMEGA, build.stream(xb)), "variant apply")
-
-    def rr_call(lib, d, rc, slab):
-        xd, bd = xs[d]
-        return lambda: build.check(lib, lib.stencil3d_residual_restrict(
-            code[d], xd.data_ptr(), bd.data_ptr(), rc.data_ptr(), *FULL, slab,
-            DIAG, OFF, 0.5, build.stream(xd)), "variant restrict")
-
-    def jd_call(lib, y, d, slab):
-        xb, bb = xs[torch.bfloat16]
-        return lambda: build.check(lib, lib.stencil3d_jacobi_dot(
-            code[xb.dtype], code[y.dtype], xb.data_ptr(), bb.data_ptr(),
-            y.data_ptr(), parts.data_ptr(), d.data_ptr(), *FULL, slab, DIAG,
-            OFF, OMEGA, build.stream(xb)), "variant jacobi_dot")
-
-    y32 = torch.empty(FULL, device=dev)
-    coarse = tuple(m // 2 for m in FULL)
-    rcs = {d: torch.empty(coarse, dtype=d, device=dev)
-           for d in (torch.bfloat16, torch.float32)}
-    ref_rc = {d: k.stencil3d_residual_restrict(*xs[d], diag=DIAG, off=OFF,
-                                               scale=4.0)
-              for d in rcs}
-    ref_y, ref_dot = k.stencil3d_apply(*xs[torch.bfloat16], kind="jacobi_dot",
-                                       diag=DIAG, off=OFF, omega=OMEGA,
-                                       out_dtype=torch.float32)
-    # what the card streams in plain PyTorch: the sum of x and b (a read
-    # of both, a write of one), and the sum of x's values (a read)
-    xb, bb = xs[torch.bfloat16]
-    for what, fn in (("torch.add(x, b)", lambda: torch.add(xb, bb)),
-                     ("x.sum()", lambda: xb.sum())):
-        log(f"streaming yardstick, bf16 512^3: {what} "
-            f"{repeat_ms(torch, fn)[0]:.3f} ms")
-    for label, (lib, regs) in libs.items():
-        for line in regs:
-            log(f"variant {label}: {line}")
-        walk = label.startswith("walk") or label == "as is"
-        for sl in ((slab, 2 * slab) if label == "as is" else
-                   (slab,) if walk else ()):
-            times = {}
-            for d in rcs:
-                times[f"B {d}"] = repeat_ms(torch, rr_call(lib, d, rcs[d], sl))[0]
-                if label != "walk B loads only":
-                    check(torch, f"variant {label} B", rcs[d], ref_rc[d],
-                          "bits")
-            d1 = torch.empty((), device=dev)
-            times["jacobi_dot walk"] = repeat_ms(torch, jd_call(lib, y32, d1,
-                                                                sl))[0]
-            check(torch, f"variant {label} jacobi_dot y", y32, ref_y, "bits")
-            if sl == slab:   # another slab sums the partials in another order
-                check(torch, f"variant {label} jacobi_dot dot", d1, ref_dot,
-                      "bits")
-            log(f"variant {label}, slab {sl}: " + ", ".join(
-                f"{key} {ms:.3f} ms" for key, ms in times.items()))
-        if not walk or label == "as is":
-            ms = repeat_ms(torch, apply_call(lib, 4, torch.float32, y32))
-            log(f"variant {label}: apply_kernel jacobi_dot bf16->f32 "
-                f"{ms[0]:.3f} ms (spread {ms[1]:.1%})")
-        if label == "as is":
-            for kind, odt in ((3, torch.float32), (3, torch.bfloat16)):
-                y = torch.empty(FULL, dtype=odt, device=dev)
-                ms = repeat_ms(torch, apply_call(lib, kind, odt, y))
-                log(f"variant {label}: apply_kernel jacobi (no sum) bf16->"
-                    f"{str(odt)[6:]} {ms[0]:.3f} ms (spread {ms[1]:.1%})")
-    torch.cuda.empty_cache()
 
 
 def kernel_phase_2d(torch, dev) -> dict:
@@ -1328,17 +1036,12 @@ def slice_phase(torch, port, k, dev) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         k.reset_launch_counts()
-        calls = {}
         t0 = time.perf_counter()
-        with record_levels(k, calls):
-            res = solve()
+        res = solve()
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         counts = k.launch_counts()
         peak = torch.cuda.max_memory_allocated()
-        if n == SLICE[-1]:
-            level_report(torch, calls)
-        del calls
         missing = [m for m in names if counts.get(m, 0) == 0]
         if missing:
             raise AssertionError(f"{n}^3: kernels never launched: {missing}")
@@ -1352,6 +1055,13 @@ def slice_phase(torch, port, k, dev) -> dict:
                 res = solve()
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
+            # the launches by grid in one more solve, neither counted nor
+            # timed: the recording wraps every call of kernels A-D
+            calls = {}
+            with record_levels(k, calls):
+                solve()
+            level_report(torch, calls)
+            del calls
 
         xhi, xlo = res.x
         x64 = xhi.double() + xlo.double()

@@ -81,9 +81,9 @@ __device__ __forceinline__ TC stencil7(TC diag, TC off, TC c, TC xm, TC xp,
 // The dot kinds (x.Ax for mv_dot, b.x' for jacobi_dot, both on the
 // arithmetic-type value before its cast to the output type; the sum of
 // (b - y)^2 for mv_norm) write one partial sum per
-// block; sum_partials adds the partials in a fixed order.  (The wrapper
-// sends jacobi_dot on f32 and bf16 storage to its own walk,
-// stencil3d_jacobi_dot below; here it serves f64.)  No float
+// block; sum_partials adds the partials in a fixed order.  (jacobi_dot on
+// f32 and bf16 storage has its own walk, stencil3d_jacobi_dot below; here
+// it serves f64 alone.)  No float
 // atomics, so a dot is the same from run to run and CG's iteration counts
 // repeat.  (The Pallas kernel carried the sum across its sequential grid,
 // which Hopper's blocks do not have.)
@@ -220,8 +220,6 @@ cudaError_t dispatch_kind(int kind, const void* x, const void* b, void* y,
             return launch_apply<RESIDUAL, TX, TO>(x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
         case JACOBI:
             return launch_apply<JACOBI, TX, TO>(x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
-        case JACOBI_DOT:
-            return launch_apply<JACOBI_DOT, TX, TO>(x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
         case MV_CAST:
             return launch_apply<MV_CAST, TX, TO>(x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
         default:
@@ -331,46 +329,26 @@ cudaError_t launch_axpy_mv_dot(const void* z, const void* p, const void* beta,
 }
 
 // ---------------------------------------------------------------------------
-// Kernel C: stencil3d_prolong_jacobi
+// The warp walk of kernels B and C and of kernel A's kind jacobi_dot
 //
-// Replaces ops/stencil_pallas.py:stencil3d_prolong_jacobi_pallas
-// (_kernel3d_pj): out = m + omega (b - A m) with m = x + P e, P the
-// piecewise-constant prolongation of the coarse correction e.  The
-// prolonged m never reaches device memory.
-//
-// Bound: memory bytes, reads of x, b and e (1/8 size) and one write:
-// 12.5 bytes a fine point in f32, 6.25 in bf16 (0.84 GB at 512^3, 0.25 ms
-// at 3.35 TB/s).
-//
-// Design: kernel A's walk, a warp wide and PJ_R rows deep.  A lane owns one
-// coarse cell in z (a z pair) and PJ_CY cells in y: PJ_R = 2 PJ_CY fine
-// rows, whose 2 PJ_R points share PJ_CY values of e.  It walks a slab of x
-// planes (ops/stencil3d.py walk_slab) keeping m at x-1, x and
-// x+1 of its points in registers, so that m = x + e is formed once a point,
-// in f32 and never rounded.  The y neighbours are its own rows, but for
-// the two rows above and below, which it loads; the z neighbours are the
-// next lanes' points, passed by shuffles, but for the warp's two ends,
-// which lanes 0 and 31 load.  No shared memory and no barrier: each warp
-// walks on its own.  A lane's loads go out one plane ahead of their use
-// (x and e of plane x+2, b and the halo of plane x+1, while plane x is
-// computed), one float2 or __nv_bfloat162 load a row and grid: with even
-// nz every pair starts aligned when the arrays do, and arrays that do not
-// (a view at an odd offset) take scalar loads in the same kernel (the VEC
-// template flag, chosen per launch).  m is 0 outside the grid, for x and e
-// alike, by index tests.  The taps are stencil7's sum, rounded once at the
-// store, as the plain version and kernel A do.  No per-point division:
-// coarse indices are the lane's own, shifted.
+// One tile and one lane layout (walk_lane) for the three; kernel C and
+// jacobi_dot also share the loads (walk_own, walk_edge) and the taps
+// (taps_of), while B stages its loads through shared memory.  A lane
+// owns a z pair, the points k0 = 2 (blockIdx.x WK_TZ + lane) and k0 + 1,
+// in WK_R fine rows j0 .. j0 + WK_R - 1; a block is WK_WY warps along y,
+// a tile of 16 rows by 64 z points (ops/stencil3d.py WALK_TY, WALK_TZ), and walks a
+// slab of x planes (ops/stencil3d.py walk_slab) keeping x at planes i-1, i
+// and i+1 of its points in f32 registers.  The y neighbours are its own
+// rows, but for the two halo rows, which it loads; the z neighbours are
+// the next lanes' points, passed by shuffles, but for the warp's two ends,
+// which lanes 0 and 31 load.  No barrier.  The loads
+// of plane i+1 go out while plane i is computed, one float2 or
+// __nv_bfloat162 load a row and array; a launch whose arrays do not all
+// start on a pair, or whose nz is odd, takes scalar loads (VEC false),
+// guarded point by point.  A point outside the grid is 0 by the index
+// tests, and a lane with no point in the grid still walks, with zeros,
+// so that every lane takes part in the shuffles.
 // ---------------------------------------------------------------------------
-
-constexpr int PJ_TZ = 32;                  // lanes along z, a coarse cell each
-constexpr int PJ_CY = 2;                   // coarse cells along y a lane owns
-constexpr int PJ_R = 2 * PJ_CY;            // its fine rows
-constexpr int PJ_WY = 4;                   // warps along y in a block
-constexpr int PJ_NT = PJ_TZ * PJ_WY;
-// blocks an SM must hold: 6 in bf16 (at most 80 registers a thread), 4 in
-// f32 (128), the caps under which the walk ran fastest at 512^3 on an H100
-// (a tighter cap spills, a looser one leaves too few warps in flight)
-template <typename T> struct PjResident { enum { value = sizeof(T) == 2 ? 6 : 4 }; };
 
 // a z pair of a storage type, as loaded
 template <typename T> struct PairOf;
@@ -409,17 +387,6 @@ __device__ __forceinline__ void store_pair(bf16* __restrict__ p, int64_t i, floa
     }
 }
 
-__device__ __forceinline__ float2 add_e(float2 v, float e) {
-    return make_float2(v.x + e, v.y + e);
-}
-
-__device__ __forceinline__ float pj_point(float c, float xn, float xs, float yn, float ys,
-                                          float zw, float ze, float bv, float diag,
-                                          float off, float omega) {
-    const float am = diag * c + off * ((((xn + xs) + yn) + ys) + (zw + ze));
-    return c + omega * (bv - am);
-}
-
 template <typename T> __device__ __forceinline__ T zero_of();
 template <> __device__ __forceinline__ float zero_of<float>() { return 0.f; }
 template <> __device__ __forceinline__ bf16 zero_of<bf16>() { return __float2bfloat16_rn(0.f); }
@@ -430,197 +397,12 @@ template <> __device__ __forceinline__ __nv_bfloat162 zero_of<__nv_bfloat162>() 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 
-// Where a lane works: the grids' extents, its coarse cells and fine corner
-struct PjLane {
-    int64_t nx, ny, nz, nzc, plane, cplane;
-    int64_t cy0, kc, j0, k0;
-    int cells;      // of its PJ_CY cells, those inside the grid (0 past z)
-    bool top, bot;  // whether rows j0 - 1 and j0 + PJ_R are inside the grid
-    int zdir;       // -1 for lane 0 (z point k0 - 1), +1 for lane 31 (k0 + 2)
-};
-
-// The loads of one plane, in the storage type, 0 outside the grid: the
-// lane's x pairs and e values ("own"), and its b pairs with the halo it
-// fills ("edge").  m = x + e is formed one plane after the loads go out.
-template <typename T> struct PjOwn {
-    typename PairOf<T>::type x[PJ_R];
-    T e[PJ_CY];
-};
-template <typename T> struct PjEdge {
-    typename PairOf<T>::type b[PJ_R], yt, yb;
-    T eyt, eyb;
-    T z[PJ_R];      // lanes 0 and 31: the z halo of each row
-    T ez[PJ_CY];
-};
-
-template <bool VEC, typename T>
-__device__ __forceinline__ PjOwn<T> pj_own(const T* __restrict__ x, const T* __restrict__ e,
-                                           const PjLane& l, int64_t p) {
-    PjOwn<T> o;
-    const bool in = p >= 0 && p < l.nx;
-    const int64_t q = p * l.plane + l.j0 * l.nz + l.k0;
-    const int64_t qe = (p >> 1) * l.cplane + l.cy0 * l.nzc + l.kc;
-#pragma unroll
-    for (int c = 0; c < PJ_CY; ++c) {
-        const bool ok = in && c < l.cells;
-        o.x[2 * c] = ok ? load_pair<VEC>(x, q + 2 * c * l.nz) : zero_of<typename PairOf<T>::type>();
-        o.x[2 * c + 1] =
-            ok ? load_pair<VEC>(x, q + (2 * c + 1) * l.nz) : zero_of<typename PairOf<T>::type>();
-        o.e[c] = ok ? e[qe + c * l.nzc] : zero_of<T>();
-    }
-    return o;
-}
-
-template <bool VEC, typename T>
-__device__ __forceinline__ PjEdge<T> pj_edge(const T* __restrict__ x, const T* __restrict__ e,
-                                             const T* __restrict__ b, const PjLane& l,
-                                             int64_t p, bool in) {
-    typedef typename PairOf<T>::type P;
-    PjEdge<T> d;
-    const int64_t q = p * l.plane + l.j0 * l.nz + l.k0;
-    const int64_t cp = (p >> 1) * l.cplane;
-#pragma unroll
-    for (int r = 0; r < PJ_R; ++r)
-        d.b[r] = in && r / 2 < l.cells ? load_pair<VEC>(b, q + r * l.nz) : zero_of<P>();
-    const bool top = in && l.top, bot = in && l.bot;
-    d.yt = top ? load_pair<VEC>(x, q - l.nz) : zero_of<P>();
-    d.eyt = top ? e[cp + (l.cy0 - 1) * l.nzc + l.kc] : zero_of<T>();
-    d.yb = bot ? load_pair<VEC>(x, q + PJ_R * l.nz) : zero_of<P>();
-    d.eyb = bot ? e[cp + (l.cy0 + PJ_CY) * l.nzc + l.kc] : zero_of<T>();
-    const int64_t kh = l.zdir < 0 ? l.k0 - 1 : l.k0 + 2;
-    const bool zin = in && l.zdir != 0 && kh >= 0 && kh < l.nz;
-#pragma unroll
-    for (int c = 0; c < PJ_CY; ++c) {
-        const bool ok = zin && l.cy0 + c < l.ny / 2;
-        d.z[2 * c] = ok ? x[q + 2 * c * l.nz + (kh - l.k0)] : zero_of<T>();
-        d.z[2 * c + 1] = ok ? x[q + (2 * c + 1) * l.nz + (kh - l.k0)] : zero_of<T>();
-        d.ez[c] = ok ? e[cp + (l.cy0 + c) * l.nzc + (kh >> 1)] : zero_of<T>();
-    }
-    return d;
-}
-
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(PJ_NT, PjResident<T>::value) prolong_jacobi_kernel(
-    const T* __restrict__ x, const T* __restrict__ b, const T* __restrict__ e,
-    T* __restrict__ out, int64_t nx, int64_t ny, int64_t nz, int64_t slab,
-    float diag, float off, float omega) {
-    const int lane = threadIdx.x;
-    PjLane l;
-    l.nx = nx; l.ny = ny; l.nz = nz; l.nzc = nz / 2;
-    l.plane = ny * nz; l.cplane = (ny / 2) * l.nzc;
-    l.kc = (int64_t)blockIdx.x * PJ_TZ + lane;
-    l.cy0 = ((int64_t)blockIdx.y * PJ_WY + threadIdx.y) * PJ_CY;
-    l.j0 = 2 * l.cy0;
-    l.k0 = 2 * l.kc;
-    {
-        const int64_t left = ny / 2 - l.cy0;
-        l.cells = l.kc >= l.nzc || left <= 0 ? 0 : left < PJ_CY ? (int)left : PJ_CY;
-    }
-    l.top = l.j0 >= 1 && l.j0 - 1 < ny && l.kc < l.nzc;
-    l.bot = l.j0 + PJ_R < ny && l.kc < l.nzc;
-    l.zdir = lane == 0 ? -1 : lane == PJ_TZ - 1 ? 1 : 0;
-    const int64_t i0 = (int64_t)blockIdx.z * slab;
-    const int64_t i1 = i0 + slab < nx ? i0 + slab : nx;
-
-    // m of the lane's points at planes i-1, i and i+1; when plane i starts,
-    // the loads of own(i+1) and edge(i) are in flight
-    float2 prev[PJ_R], cur[PJ_R], next[PJ_R];
-    {
-        const PjOwn<T> a = pj_own<VEC>(x, e, l, i0 - 1);
-        const PjOwn<T> c = pj_own<VEC>(x, e, l, i0);
-#pragma unroll
-        for (int r = 0; r < PJ_R; ++r) {
-            prev[r] = add_e(to_f2(a.x[r]), to_f(a.e[r / 2]));
-            cur[r] = add_e(to_f2(c.x[r]), to_f(c.e[r / 2]));
-        }
-    }
-    PjOwn<T> own = pj_own<VEC>(x, e, l, i0 + 1);
-    PjEdge<T> edge = pj_edge<VEC>(x, e, b, l, i0, true);
-    for (int64_t i = i0; i < i1; ++i) {
-#pragma unroll
-        for (int r = 0; r < PJ_R; ++r) next[r] = add_e(to_f2(own.x[r]), to_f(own.e[r / 2]));
-        const PjEdge<T> d = edge;
-        // the next plane's loads go out before this plane is computed
-        own = pj_own<VEC>(x, e, l, i + 1 < i1 ? i + 2 : -1);
-        edge = pj_edge<VEC>(x, e, b, l, i + 1, i + 1 < i1);
-        const float2 yt = add_e(to_f2(d.yt), to_f(d.eyt));
-        const float2 yb = add_e(to_f2(d.yb), to_f(d.eyb));
-        const int64_t q = i * l.plane + l.j0 * nz + l.k0;
-#pragma unroll
-        for (int r = 0; r < PJ_R; ++r) {
-            const float zh = to_f(d.z[r]) + to_f(d.ez[r / 2]);
-            const float up = __shfl_up_sync(0xffffffffu, cur[r].y, 1);
-            const float down = __shfl_down_sync(0xffffffffu, cur[r].x, 1);
-            const float zw = lane == 0 ? zh : up;
-            const float ze = lane == PJ_TZ - 1 ? zh : down;
-            const float2 yn = r == 0 ? yt : cur[r - 1];
-            const float2 ys = r == PJ_R - 1 ? yb : cur[r + 1];
-            const float2 bv = to_f2(d.b[r]);
-            float2 o;
-            o.x = pj_point(cur[r].x, prev[r].x, next[r].x, yn.x, ys.x, zw, cur[r].y, bv.x,
-                           diag, off, omega);
-            o.y = pj_point(cur[r].y, prev[r].y, next[r].y, yn.y, ys.y, cur[r].x, ze, bv.y,
-                           diag, off, omega);
-            if (r / 2 < l.cells) store_pair<VEC>(out, q + r * nz, o);
-        }
-#pragma unroll
-        for (int r = 0; r < PJ_R; ++r) {
-            prev[r] = cur[r];
-            cur[r] = next[r];
-        }
-    }
-}
-
-template <typename T>
-cudaError_t launch_prolong_jacobi(const void* x, const void* b, const void* e, void* out,
-                                  int64_t nx, int64_t ny, int64_t nz, int64_t slab,
-                                  float diag, float off, float omega, cudaStream_t s) {
-    const int64_t cells_y = PJ_CY * PJ_WY;
-    const dim3 grid((unsigned)((nz / 2 + PJ_TZ - 1) / PJ_TZ),
-                    (unsigned)((ny / 2 + cells_y - 1) / cells_y),
-                    (unsigned)((nx + slab - 1) / slab));
-    const dim3 block(PJ_TZ, PJ_WY);
-    // pairs are aligned when every array starts on a pair (nz is even)
-    const uintptr_t pair = 2 * sizeof(T);
-    const bool vec = reinterpret_cast<uintptr_t>(x) % pair == 0 &&
-                     reinterpret_cast<uintptr_t>(b) % pair == 0 &&
-                     reinterpret_cast<uintptr_t>(out) % pair == 0;
-    if (vec)
-        prolong_jacobi_kernel<T, true><<<grid, block, 0, s>>>(
-            static_cast<const T*>(x), static_cast<const T*>(b), static_cast<const T*>(e),
-            static_cast<T*>(out), nx, ny, nz, slab, diag, off, omega);
-    else
-        prolong_jacobi_kernel<T, false><<<grid, block, 0, s>>>(
-            static_cast<const T*>(x), static_cast<const T*>(b), static_cast<const T*>(e),
-            static_cast<T*>(out), nx, ny, nz, slab, diag, off, omega);
-    return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// The warp walk of kernel B and of kernel A's kind jacobi_dot
-//
-// Kernel C's walk without the coarse correction.  A lane owns a z pair,
-// the points k0 = 2 (blockIdx.x WK_TZ + lane) and k0 + 1, in WK_R fine
-// rows j0 .. j0 + WK_R - 1; a block is WK_WY warps along y, a tile of
-// 16 rows by 64 z points (ops/stencil3d.py WALK_TY, WALK_TZ), and walks a
-// slab of x planes (ops/stencil3d.py walk_slab) keeping x at planes i-1, i
-// and i+1 of its points in f32 registers.  The y neighbours are its own
-// rows, but for the two halo rows, which it loads; the z neighbours are
-// the next lanes' points, passed by shuffles, but for the warp's two ends,
-// which lanes 0 and 31 load.  No shared memory and no barrier.  The loads
-// of plane i+1 go out while plane i is computed, one float2 or
-// __nv_bfloat162 load a row and array; a launch whose arrays do not all
-// start on a pair, or whose nz is odd, takes scalar loads (VEC false),
-// guarded point by point.  A point outside the grid is 0 by the index
-// tests, and a lane with no point in the grid still walks, with zeros,
-// so that every lane takes part in the shuffles.
-// ---------------------------------------------------------------------------
-
 constexpr int WK_TZ = 32;                  // lanes along z, a z pair each
 constexpr int WK_R = 4;                    // fine rows a lane owns
 constexpr int WK_WY = 4;                   // warps along y in a block
 constexpr int WK_NT = WK_TZ * WK_WY;
-// blocks an SM must hold, by storage type (the register cap of the walk)
+// blocks an SM must hold, by storage type: the register cap of
+// jacobi_dot's walk (kernels B and C set their own)
 template <typename T> struct WalkResident { enum { value = sizeof(T) == 2 ? 6 : 4 }; };
 
 struct WalkLane {
@@ -670,6 +452,14 @@ __device__ __forceinline__ void store_pts(T* __restrict__ p, int64_t i, float2 v
         store(p, i, v.x);
 }
 
+// Whether row r of the lane lies inside the grid.  With PAIRS (ny even, as
+// kernel C requires) its rows come in pairs and one test serves a pair:
+// fewer predicates, and C's walk no longer spills at its register cap.
+template <bool PAIRS>
+__device__ __forceinline__ bool has_row(const WalkLane& l, int r) {
+    return (PAIRS ? r | 1 : r) < l.rows;
+}
+
 // The loads of one plane, in the storage type, 0 outside the grid: the
 // lane's x pairs ("own", a plane ahead of the next one's use), and its b
 // pairs with the halo ("edge", for the plane computed next).
@@ -681,7 +471,7 @@ template <typename T> struct WalkEdge {
     T z[WK_R];      // lanes 0 and 31: the z halo of each row
 };
 
-template <bool VEC, typename T>
+template <bool VEC, bool PAIRS, typename T>
 __device__ __forceinline__ WalkOwn<T> walk_own(const T* __restrict__ x, const WalkLane& l,
                                                int64_t p) {
     WalkOwn<T> o;
@@ -689,11 +479,11 @@ __device__ __forceinline__ WalkOwn<T> walk_own(const T* __restrict__ x, const Wa
     const int64_t q = p * l.plane + l.j0 * l.nz + l.k0;
 #pragma unroll
     for (int r = 0; r < WK_R; ++r)
-        o.x[r] = pair_at<VEC>(x, q + r * l.nz, in && r < l.rows ? l.pts : 0);
+        o.x[r] = pair_at<VEC>(x, q + r * l.nz, in && has_row<PAIRS>(l, r) ? l.pts : 0);
     return o;
 }
 
-template <bool VEC, typename T>
+template <bool VEC, bool PAIRS, typename T>
 __device__ __forceinline__ WalkEdge<T> walk_edge(const T* __restrict__ x,
                                                  const T* __restrict__ b, const WalkLane& l,
                                                  int64_t p, bool in) {
@@ -701,14 +491,14 @@ __device__ __forceinline__ WalkEdge<T> walk_edge(const T* __restrict__ x,
     const int64_t q = p * l.plane + l.j0 * l.nz + l.k0;
 #pragma unroll
     for (int r = 0; r < WK_R; ++r)
-        d.b[r] = pair_at<VEC>(b, q + r * l.nz, in && r < l.rows ? l.pts : 0);
+        d.b[r] = pair_at<VEC>(b, q + r * l.nz, in && has_row<PAIRS>(l, r) ? l.pts : 0);
     d.yt = pair_at<VEC>(x, q - l.nz, in && l.top ? l.pts : 0);
     d.yb = pair_at<VEC>(x, q + WK_R * l.nz, in && l.bot ? l.pts : 0);
     const int64_t kh = l.zdir < 0 ? l.k0 - 1 : l.k0 + 2;
     const bool zin = in && l.zdir != 0 && kh >= 0 && kh < l.nz;
 #pragma unroll
     for (int r = 0; r < WK_R; ++r)
-        d.z[r] = zin && r < l.rows ? x[q + r * l.nz + (kh - l.k0)] : zero_of<T>();
+        d.z[r] = zin && has_row<PAIRS>(l, r) ? x[q + r * l.nz + (kh - l.k0)] : zero_of<T>();
     return d;
 }
 
@@ -718,18 +508,18 @@ struct Taps {
     float zw, ze;   // z points k0 - 1 and k0 + 2
 };
 
-template <typename T>
-__device__ __forceinline__ Taps taps_of(const float2 (&cur)[WK_R], const WalkEdge<T>& d,
-                                        int r) {
+// (of row r, given the halo rows yt and yb and the z halo zh of row r, all
+// in f32)
+__device__ __forceinline__ Taps taps_of(const float2 (&cur)[WK_R], float2 yt, float2 yb,
+                                        float zh, int r) {
     const int lane = threadIdx.x;
-    const float zh = to_f(d.z[r]);
     const float up = __shfl_up_sync(0xffffffffu, cur[r].y, 1);
     const float down = __shfl_down_sync(0xffffffffu, cur[r].x, 1);
     Taps t;
     t.zw = lane == 0 ? zh : up;
     t.ze = lane == WK_TZ - 1 ? zh : down;
-    t.yn = r == 0 ? to_f2(d.yt) : cur[r - 1];
-    t.ys = r == WK_R - 1 ? to_f2(d.yb) : cur[r + 1];
+    t.yn = r == 0 ? yt : cur[r - 1];
+    t.ys = r == WK_R - 1 ? yb : cur[r + 1];
     return t;
 }
 
@@ -746,6 +536,165 @@ bool walk_fits(int64_t nx, int64_t ny, int64_t slab) {
 
 bool pair_aligned(const void* p, size_t pair) {
     return reinterpret_cast<uintptr_t>(p) % pair == 0;
+}
+
+// ---------------------------------------------------------------------------
+// Kernel C: stencil3d_prolong_jacobi
+//
+// Replaces ops/stencil_pallas.py:stencil3d_prolong_jacobi_pallas
+// (_kernel3d_pj): out = m + omega (b - A m) with m = x + P e, P the
+// piecewise-constant prolongation of the coarse correction e.  The
+// prolonged m never reaches device memory.
+//
+// Bound: memory bytes, reads of x, b and e (1/8 size) and one write:
+// 12.5 bytes a fine point in f32, 6.25 in bf16 (0.84 GB at 512^3, 0.25 ms
+// at 3.35 TB/s).
+//
+// Design: the warp walk above, over m.  A lane's z pair is one coarse cell
+// in z and its WK_R rows WK_R / 2 cells in y, whose 2 WK_R points share
+// WK_R / 2 values of e.  Beside walk_own's x and walk_edge's b and halo,
+// the lane loads e of its cells, of its halo rows and of its z halo, so
+// that m = x + e is formed once a point, in f32 and never rounded, and
+// kept at planes i-1, i and i+1.  Its loads go out one plane ahead of
+// their use (x and e of plane i+2, b and the halo of plane i+1, while
+// plane i is computed).  m is 0 outside the grid, for x and e alike, by
+// index tests.  The taps are stencil7's sum, rounded once at the store, as
+// the plain version and kernel A do.  No per-point division: coarse
+// indices are the lane's own, shifted.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float2 add_e(float2 v, float e) {
+    return make_float2(v.x + e, v.y + e);
+}
+
+__device__ __forceinline__ float pj_point(float c, float xn, float xs, float yn, float ys,
+                                          float zw, float ze, float bv, float diag,
+                                          float off, float omega) {
+    const float am = diag * c + off * ((((xn + xs) + yn) + ys) + (zw + ze));
+    return c + omega * (bv - am);
+}
+
+// walk_own's and walk_edge's loads of one plane with e beside them: of the
+// lane's cells ("own"), and of its halo rows and z halo ("edge")
+template <typename T> struct PjOwn {
+    WalkOwn<T> w;
+    T e[WK_R / 2];
+};
+template <typename T> struct PjEdge {
+    WalkEdge<T> w;
+    T eyt, eyb;
+    T ez[WK_R / 2];
+};
+
+// The index in e of the lane's first coarse cell at fine plane p
+__device__ __forceinline__ int64_t coarse_at(const WalkLane& l, int64_t p) {
+    return ((p >> 1) * (l.ny >> 1) + (l.j0 >> 1)) * (l.nz >> 1) + (l.k0 >> 1);
+}
+
+template <bool VEC, typename T>
+__device__ __forceinline__ PjOwn<T> pj_own(const T* __restrict__ x, const T* __restrict__ e,
+                                           const WalkLane& l, int64_t p) {
+    PjOwn<T> o;
+    o.w = walk_own<VEC, true>(x, l, p);
+    const bool in = p >= 0 && p < l.nx;
+    const int64_t nzc = l.nz >> 1, qe = coarse_at(l, p);
+#pragma unroll
+    for (int r = 0; r < WK_R / 2; ++r)
+        o.e[r] = in && 2 * r < l.rows ? e[qe + r * nzc] : zero_of<T>();
+    return o;
+}
+
+template <bool VEC, typename T>
+__device__ __forceinline__ PjEdge<T> pj_edge(const T* __restrict__ x, const T* __restrict__ e,
+                                             const T* __restrict__ b, const WalkLane& l,
+                                             int64_t p, bool in) {
+    PjEdge<T> d;
+    d.w = walk_edge<VEC, true>(x, b, l, p, in);
+    const int64_t nzc = l.nz >> 1, q = coarse_at(l, p);
+    d.eyt = in && l.top ? e[q - nzc] : zero_of<T>();
+    d.eyb = in && l.bot ? e[q + (WK_R / 2) * nzc] : zero_of<T>();
+    const int64_t kh = l.zdir < 0 ? l.k0 - 1 : l.k0 + 2;
+    const bool zin = in && l.zdir != 0 && kh >= 0 && kh < l.nz;
+#pragma unroll
+    for (int r = 0; r < WK_R / 2; ++r)
+        d.ez[r] = zin && 2 * r < l.rows ? e[q + r * nzc + l.zdir] : zero_of<T>();
+    return d;
+}
+
+// blocks an SM must hold for kernel C, by storage type: 5 in bf16 (at most
+// 96 registers a thread), 4 in f32 (128); with 6 in bf16 its walk spills
+template <typename T> struct PjResident { enum { value = sizeof(T) == 2 ? 5 : 4 }; };
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(WK_NT, PjResident<T>::value) prolong_jacobi_kernel(
+    const T* __restrict__ x, const T* __restrict__ b, const T* __restrict__ e,
+    T* __restrict__ out, int64_t nx, int64_t ny, int64_t nz, int64_t slab,
+    float diag, float off, float omega) {
+    const WalkLane l = walk_lane(nx, ny, nz);
+    const int64_t i0 = (int64_t)blockIdx.z * slab;
+    const int64_t i1 = i0 + slab < nx ? i0 + slab : nx;
+
+    // m of the lane's points at planes i-1, i and i+1; when plane i starts,
+    // the loads of own(i+1) and edge(i) are in flight
+    float2 prev[WK_R], cur[WK_R], next[WK_R];
+    {
+        const PjOwn<T> a = pj_own<VEC>(x, e, l, i0 - 1);
+        const PjOwn<T> o = pj_own<VEC>(x, e, l, i0);
+#pragma unroll
+        for (int r = 0; r < WK_R; ++r) {
+            prev[r] = add_e(to_f2(a.w.x[r]), to_f(a.e[r / 2]));
+            cur[r] = add_e(to_f2(o.w.x[r]), to_f(o.e[r / 2]));
+        }
+    }
+    PjOwn<T> own = pj_own<VEC>(x, e, l, i0 + 1);
+    PjEdge<T> edge = pj_edge<VEC>(x, e, b, l, i0, true);
+    for (int64_t i = i0; i < i1; ++i) {
+#pragma unroll
+        for (int r = 0; r < WK_R; ++r)
+            next[r] = add_e(to_f2(own.w.x[r]), to_f(own.e[r / 2]));
+        const PjEdge<T> d = edge;
+        // the next plane's loads go out before this plane is computed
+        own = pj_own<VEC>(x, e, l, i + 1 < i1 ? i + 2 : -1);
+        edge = pj_edge<VEC>(x, e, b, l, i + 1, i + 1 < i1);
+        const float2 yt = add_e(to_f2(d.w.yt), to_f(d.eyt));
+        const float2 yb = add_e(to_f2(d.w.yb), to_f(d.eyb));
+        const int64_t q = i * l.plane + l.j0 * nz + l.k0;
+#pragma unroll
+        for (int r = 0; r < WK_R; ++r) {
+            const Taps t = taps_of(cur, yt, yb, to_f(d.w.z[r]) + to_f(d.ez[r / 2]), r);
+            const float2 bv = to_f2(d.w.b[r]);
+            float2 v;
+            v.x = pj_point(cur[r].x, prev[r].x, next[r].x, t.yn.x, t.ys.x, t.zw, cur[r].y,
+                           bv.x, diag, off, omega);
+            v.y = pj_point(cur[r].y, prev[r].y, next[r].y, t.yn.y, t.ys.y, cur[r].x, t.ze,
+                           bv.y, diag, off, omega);
+            if (r < l.rows) store_pair<VEC>(out, q + r * nz, v);
+        }
+#pragma unroll
+        for (int r = 0; r < WK_R; ++r) {
+            prev[r] = cur[r];
+            cur[r] = next[r];
+        }
+    }
+}
+
+template <typename T>
+cudaError_t launch_prolong_jacobi(const void* x, const void* b, const void* e, void* out,
+                                  int64_t nx, int64_t ny, int64_t nz, int64_t slab,
+                                  float diag, float off, float omega, cudaStream_t s) {
+    const dim3 grid = walk_grid(nx, ny, nz, slab);
+    const dim3 block(WK_TZ, WK_WY);
+    // pairs are aligned when every array starts on a pair (nz is even)
+    const size_t pair = 2 * sizeof(T);
+    if (pair_aligned(x, pair) && pair_aligned(b, pair) && pair_aligned(out, pair))
+        prolong_jacobi_kernel<T, true><<<grid, block, 0, s>>>(
+            static_cast<const T*>(x), static_cast<const T*>(b), static_cast<const T*>(e),
+            static_cast<T*>(out), nx, ny, nz, slab, diag, off, omega);
+    else
+        prolong_jacobi_kernel<T, false><<<grid, block, 0, s>>>(
+            static_cast<const T*>(x), static_cast<const T*>(b), static_cast<const T*>(e),
+            static_cast<T*>(out), nx, ny, nz, slab, diag, off, omega);
+    return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -994,27 +943,27 @@ __global__ void __launch_bounds__(WK_NT, WalkResident<TX>::value) jacobi_dot_ker
 
     float2 prev[WK_R], cur[WK_R], next[WK_R];
     {
-        const WalkOwn<TX> a = walk_own<VEC>(x, l, i0 - 1);
-        const WalkOwn<TX> c = walk_own<VEC>(x, l, i0);
+        const WalkOwn<TX> a = walk_own<VEC, false>(x, l, i0 - 1);
+        const WalkOwn<TX> c = walk_own<VEC, false>(x, l, i0);
 #pragma unroll
         for (int r = 0; r < WK_R; ++r) {
             prev[r] = to_f2(a.x[r]);
             cur[r] = to_f2(c.x[r]);
         }
     }
-    WalkOwn<TX> own = walk_own<VEC>(x, l, i0 + 1);
-    WalkEdge<TX> edge = walk_edge<VEC>(x, b, l, i0, true);
+    WalkOwn<TX> own = walk_own<VEC, false>(x, l, i0 + 1);
+    WalkEdge<TX> edge = walk_edge<VEC, false>(x, b, l, i0, true);
     float acc = 0.f;
     for (int64_t i = i0; i < i1; ++i) {
 #pragma unroll
         for (int r = 0; r < WK_R; ++r) next[r] = to_f2(own.x[r]);
         const WalkEdge<TX> d = edge;
-        own = walk_own<VEC>(x, l, i + 1 < i1 ? i + 2 : -1);
-        edge = walk_edge<VEC>(x, b, l, i + 1, i + 1 < i1);
+        own = walk_own<VEC, false>(x, l, i + 1 < i1 ? i + 2 : -1);
+        edge = walk_edge<VEC, false>(x, b, l, i + 1, i + 1 < i1);
         const int64_t q = i * l.plane + l.j0 * nz + l.k0;
 #pragma unroll
         for (int r = 0; r < WK_R; ++r) {
-            const Taps t = taps_of(cur, d, r);
+            const Taps t = taps_of(cur, to_f2(d.yt), to_f2(d.yb), to_f(d.z[r]), r);
             const float2 bv = to_f2(d.b[r]);
             float2 v;
             v.x = stencil7(diag, off, cur[r].x, prev[r].x, next[r].x, t.yn.x, t.ys.x, t.zw,
@@ -1085,13 +1034,20 @@ int64_t stencil3d_apply_partials(int64_t nx, int64_t ny, int64_t nz) {
 // null.  partials (stencil3d_apply_partials values) and dot (one value),
 // both of the arithmetic type (f32, or f64 for f64 storage), for the kinds
 // with a sum, or null.  f64 goes with f64 only; mv_norm takes one type for
-// x, b and y, f32 or f64.
+// x, b and y, f32 or f64; jacobi_dot takes f64 alone (f32 and bf16 storage:
+// stencil3d_jacobi_dot).
 int stencil3d_apply(int kind, int x_dtype, int out_dtype, const void* x,
                     const void* b, void* y, void* y2, void* partials,
                     void* dot, int64_t nx, int64_t ny, int64_t nz, double diag,
                     double off, double omega, void* stream) {
     if (nx < 1 || ny < 1 || nz < 1) return cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (kind == JACOBI_DOT) {
+        // f32 and bf16 storage take their own walk, stencil3d_jacobi_dot
+        if (x_dtype == F64 && out_dtype == F64)
+            return launch_apply<JACOBI_DOT, double, double>(x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
+        return cudaErrorInvalidValue;
+    }
     if (kind == MV_NORM) {
         if (x_dtype == F32 && out_dtype == F32)
             return launch_apply<MV_NORM, float, float>(x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
@@ -1187,8 +1143,8 @@ int stencil3d_prolong_jacobi(int dtype, const void* x, const void* b,
                              const void* e, void* out, int64_t nx, int64_t ny,
                              int64_t nz, int64_t slab, float diag, float off,
                              float omega, void* stream) {
-    if (nx < 2 || ny < 2 || nz < 2 || nx % 2 || ny % 2 || nz % 2 || slab < 1 ||
-        (nx + slab - 1) / slab > 65535 || ny / 2 > 65535LL * PJ_CY * PJ_WY)
+    if (nx < 2 || ny < 2 || nz < 2 || nx % 2 || ny % 2 || nz % 2 ||
+        !walk_fits(nx, ny, slab))
         return cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == F32)
