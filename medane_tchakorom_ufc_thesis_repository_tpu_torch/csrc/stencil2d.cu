@@ -1,5 +1,7 @@
-// Hopper (sm_90a) kernels E and L: the matrix-free 2D 5-point Poisson apply
-// on a batch of Dirichlet rectangles,
+// Hopper (sm_90a) kernels E and L, and the 2D half of kernel M (the
+// multigrid cycle's coarse Chebyshev solve in one launch, whose device code
+// is in chebyshev_coarse.cuh): the matrix-free 2D 5-point Poisson apply on
+// a batch of Dirichlet rectangles,
 //
 //   y[b,i,j] = diag*x[b,i,j] + off*(((x[b,i-1,j] + x[b,i+1,j]) + x[b,i,j-1]) + x[b,i,j+1])
 //
@@ -68,6 +70,14 @@ constexpr int64_t MAX_GRID_YZ = 65535;
 
 constexpr int FINISH_THREADS = 1024;
 
+// A c at one point from its four neighbours: the one expression kernels E,
+// L and M evaluate, rounded op by op (the file builds with -fmad=false).
+template <typename TC>
+__device__ __forceinline__ TC stencil5(TC diag, TC off, TC c, TC up, TC down,
+                                       TC left, TC right) {
+    return diag * c + off * (((up + down) + left) + right);
+}
+
 // Sum of v over the block, valid in thread 0.  Fixed order: warp shuffles,
 // then the warp sums in warp order.
 template <int THREADS, typename T>
@@ -108,7 +118,7 @@ __global__ void __launch_bounds__(BX * BY) apply2d_kernel(
             const TC down = i + 1 < m ? load(xs, idx + n) : TC(0);
             const TC left = j > 0 ? load(xs, idx - 1) : TC(0);
             const TC right = j + 1 < n ? load(xs, idx + 1) : TC(0);
-            const TC v = diag * cur + off * (((up + down) + left) + right);
+            const TC v = stencil5(diag, off, cur, up, down, left, right);
             store(ys, idx, v);
             if (NORM) {
                 const TC d = load(b, slab + idx) - v;
@@ -176,6 +186,40 @@ cudaError_t launch_norm(const void* x, const void* b, void* y, void* partials,
     return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Kernel M (2D): the coarse Chebyshev solve, chebyshev_coarse.cuh, on a
+// 5-point grid whose A d is stencil5, as kernel E evaluates it; a batch of
+// grids is the stack of multisplitting strips under inner pc='mg'.
+// ---------------------------------------------------------------------------
+
+#include "chebyshev_coarse.cuh"
+
+template <typename TC> struct Grid5 {
+    int m, n;
+    TC diag, off;
+    __host__ __device__ __forceinline__ int points() const { return m * n; }
+    // bits: row above, row below, column left, column right inside the grid
+    __device__ __forceinline__ unsigned mask(int p) const {
+        const int j = p % n, i = p / n;
+        return (i > 0) | (i + 1 < m) << 1 | (j > 0) << 2 | (j + 1 < n) << 3;
+    }
+    __device__ __forceinline__ TC apply(const TC* s, int p, unsigned k) const {
+        return stencil5(diag, off, s[p], k & 1 ? s[p - n] : TC(0),
+                        k & 2 ? s[p + n] : TC(0), k & 4 ? s[p - 1] : TC(0),
+                        k & 8 ? s[p + 1] : TC(0));
+    }
+};
+
+template <typename T>
+cudaError_t launch_chebyshev5(const void* b, void* x, int64_t batch, int64_t m,
+                              int64_t n, double diag, double off,
+                              const double* coefs, int steps, cudaStream_t s) {
+    typedef typename Compute<T>::type TC;
+    if (m < 1 || n < 1 || m * n > CHEB_MAX_POINTS) return cudaErrorInvalidValue;
+    const Grid5<TC> g = {(int)m, (int)n, (TC)diag, (TC)off};
+    return launch_chebyshev_coarse<T>(b, x, batch, g, coefs, steps, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -222,6 +266,25 @@ int stencil2d_mv_norm(int dtype, const void* x, const void* b, void* y,
             return launch_norm<float>(x, b, y, partials, out, m, n, diag, off, stream);
         case F64:
             return launch_norm<double>(x, b, y, partials, out, m, n, diag, off, stream);
+        default:
+            return cudaErrorInvalidValue;
+    }
+}
+
+// Kernel M: `steps` Chebyshev steps from x0 = 0 on each of `batch`
+// contiguous (m, n) grids of b, into x, of f32, bf16 or f64 (dtype 0, 1,
+// 2); at most 4096 points a grid and 128 steps.  coefs: host doubles,
+// inv_theta then c1[k], c2[k] (chebyshev_coarse.cuh).
+int stencil2d_chebyshev(int dtype, const void* b, void* x, int64_t batch,
+                        int64_t m, int64_t n, double diag, double off,
+                        const double* coefs, int steps, cudaStream_t stream) {
+    switch (dtype) {
+        case F32:
+            return launch_chebyshev5<float>(b, x, batch, m, n, diag, off, coefs, steps, stream);
+        case BF16:
+            return launch_chebyshev5<bf16>(b, x, batch, m, n, diag, off, coefs, steps, stream);
+        case F64:
+            return launch_chebyshev5<double>(b, x, batch, m, n, diag, off, coefs, steps, stream);
         default:
             return cudaErrorInvalidValue;
     }

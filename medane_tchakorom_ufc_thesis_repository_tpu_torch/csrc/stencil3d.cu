@@ -2,7 +2,9 @@
 // family: the apply with its fused epilogues (kernel A, and as one more
 // kind the fused residual norm, kernel K), the multigrid cycle's fused
 // residual + restriction (kernel B) and its fused prolongation + Jacobi
-// sweep (kernel C), and PCG's fused direction update (kernel J).  Kernels
+// sweep (kernel C), PCG's fused direction update (kernel J), and the
+// cycle's coarse Chebyshev solve in one launch (kernel M, whose device code
+// is in chebyshev_coarse.cuh, shared with stencil2d.cu).  Kernels
 // B and C, and kernel A's kind jacobi_dot on f32 and bf16 storage, are
 // barrier-free warp walks; the other kinds of A, and J and K, walk one
 // thread a (y, z) column.
@@ -1014,6 +1016,43 @@ cudaError_t launch_jacobi_dot(const void* x, const void* b, void* y, void* parti
     return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Kernel M (3D): the coarse Chebyshev solve, chebyshev_coarse.cuh, on a
+// 7-point grid whose A d is stencil7, evaluated as kernel A evaluates it.
+// ---------------------------------------------------------------------------
+
+#include "chebyshev_coarse.cuh"
+
+template <typename TC> struct Grid7 {
+    int nx, ny, nz;
+    TC diag, off;
+    __host__ __device__ __forceinline__ int points() const { return nx * ny * nz; }
+    // bits: x-1, x+1, y-1, y+1, z-1, z+1 inside the grid
+    __device__ __forceinline__ unsigned mask(int p) const {
+        const int k = p % nz, j = (p / nz) % ny, i = p / (nz * ny);
+        return (i > 0) | (i + 1 < nx) << 1 | (j > 0) << 2 | (j + 1 < ny) << 3 |
+               (k > 0) << 4 | (k + 1 < nz) << 5;
+    }
+    __device__ __forceinline__ TC apply(const TC* s, int p, unsigned m) const {
+        const int pl = ny * nz;
+        return stencil7(diag, off, s[p], m & 1 ? s[p - pl] : TC(0),
+                        m & 2 ? s[p + pl] : TC(0), m & 4 ? s[p - nz] : TC(0),
+                        m & 8 ? s[p + nz] : TC(0), m & 16 ? s[p - 1] : TC(0),
+                        m & 32 ? s[p + 1] : TC(0));
+    }
+};
+
+template <typename T>
+cudaError_t launch_chebyshev7(const void* b, void* x, int64_t batch, int64_t nx,
+                              int64_t ny, int64_t nz, double diag, double off,
+                              const double* coefs, int steps, cudaStream_t s) {
+    typedef typename Compute<T>::type TC;
+    if (nx < 1 || ny < 1 || nz < 1 || nx * ny * nz > CHEB_MAX_POINTS)
+        return cudaErrorInvalidValue;
+    const Grid7<TC> g = {(int)nx, (int)ny, (int)nz, (TC)diag, (TC)off};
+    return launch_chebyshev_coarse<T>(b, x, batch, g, coefs, steps, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1151,6 +1190,23 @@ int stencil3d_prolong_jacobi(int dtype, const void* x, const void* b,
         return launch_prolong_jacobi<float>(x, b, e, out, nx, ny, nz, slab, diag, off, omega, s);
     if (dtype == BF16)
         return launch_prolong_jacobi<bf16>(x, b, e, out, nx, ny, nz, slab, diag, off, omega, s);
+    return cudaErrorInvalidValue;
+}
+
+// Kernel M: `steps` Chebyshev steps from x0 = 0 on each of `batch`
+// contiguous (nx, ny, nz) grids of b, into x, of f32, bf16 or f64 (dtype
+// 0, 1, 2); at most 4096 points a grid and 128 steps.  coefs: host
+// doubles, inv_theta then c1[k], c2[k] (chebyshev_coarse.cuh).
+int stencil3d_chebyshev(int dtype, const void* b, void* x, int64_t batch,
+                        int64_t nx, int64_t ny, int64_t nz, double diag,
+                        double off, const double* coefs, int steps, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (dtype == F32)
+        return launch_chebyshev7<float>(b, x, batch, nx, ny, nz, diag, off, coefs, steps, s);
+    if (dtype == BF16)
+        return launch_chebyshev7<bf16>(b, x, batch, nx, ny, nz, diag, off, coefs, steps, s);
+    if (dtype == F64)
+        return launch_chebyshev7<double>(b, x, batch, nx, ny, nz, diag, off, coefs, steps, s);
     return cudaErrorInvalidValue;
 }
 

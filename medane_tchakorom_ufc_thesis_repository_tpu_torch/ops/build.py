@@ -65,6 +65,8 @@ SIGNATURES = {
              _P], _I),
         "stencil3d_prolong_jacobi": (
             [_I, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _F, _F, _F, _P], _I),
+        "stencil3d_chebyshev": (
+            [_I, _P, _P, _I64, _I64, _I64, _I64, _D, _D, _P, _I, _P], _I),
     },
     "df_residual": {
         "kernel_error_string": ([_I], ctypes.c_char_p),
@@ -78,6 +80,8 @@ SIGNATURES = {
         "stencil2d_mv_norm_partials": ([_I64, _I64], _I64),
         "stencil2d_mv_norm": (
             [_I, _P, _P, _P, _P, _P, _I64, _I64, _D, _D, _P], _I),
+        "stencil2d_chebyshev": (
+            [_I, _P, _P, _I64, _I64, _I64, _D, _D, _P, _I, _P], _I),
     },
     "mdot": {
         "kernel_error_string": ([_I], ctypes.c_char_p),
@@ -118,9 +122,12 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built: the name carries
-    a hash of the source bytes and the compiler flags."""
+    a hash of the source bytes, of every shared header ``csrc/*.cuh`` and
+    of the compiler flags."""
     flags = NVCC_FLAGS + EXTRA_FLAGS[name]
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -200,6 +207,36 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     launches.clear()
+
+
+class CountedGraph:
+    """A CUDA graph of wrapper calls that keeps ``launches`` true.
+
+    A capture runs no kernel, yet each wrapper called inside it adds its
+    one launch.  ``capture`` takes those additions back out and keeps
+    them; every ``replay`` adds them again, once for each kernel the
+    replay launches.  ``graph`` is a ``torch.cuda.CUDAGraph`` (anything
+    with ``replay()``), ``context`` a function returning the context
+    manager that captures into it (``torch.cuda.graph(graph, ...)``)."""
+
+    def __init__(self, graph, context):
+        self.graph, self.context = graph, context
+        self.launches: collections.Counter = collections.Counter()
+
+    def capture(self, fn):
+        """Capture ``fn()`` and return its result."""
+        before = collections.Counter(launches)
+        with self.context():
+            out = fn()
+        self.launches = launches - before
+        launches.subtract(self.launches)
+        for name in [n for n, c in launches.items() if c == 0]:
+            del launches[name]
+        return out
+
+    def replay(self) -> None:
+        self.graph.replay()
+        launches.update(self.launches)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -3,21 +3,52 @@ the multigrid cycle's coarse solve and a multisplitting inner solve.
 
 Each iteration is one matvec and a few axpys, with no dot products.  The
 recurrence's scalars depend only on the spectral bounds, so they are
-computed on the host, rounded to the solve's dtype after every operation
-as JAX rounds its device scalars; the loop then launches no scalar work
-and reads nothing from the device.
+computed on the host (``chebyshev_coefficients``), rounded to the solve's
+dtype after every operation as JAX rounds its device scalars; the loop
+then launches no scalar work and reads nothing from the device.  The
+multigrid cycle's coarse solve runs the same recurrence in one launch
+(kernel M, ``ops/coarse.py``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Optional
 
 import torch
 
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops.coarse import (
+    Coefficients,
+    chebyshev_steps,
+)
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.krylov import (
     KrylovResult,
 )
+
+
+@functools.lru_cache(maxsize=1024)
+def chebyshev_coefficients(lmin: float, lmax: float, maxiter: int,
+                           dtype: torch.dtype) -> Coefficients:
+    """The scalars of ``maxiter`` Chebyshev steps over ``[lmin, lmax]``:
+    ``(theta, ((c1, c2), ...))``, step k being ``d = c1 d + c2 r``.  Each
+    is rounded to ``dtype`` after every operation, as JAX rounds its
+    device scalars, and read by the loop (``chebyshev``) and by kernel M
+    (``ops/coarse.chebyshev_coarse``) alike."""
+
+    def rnd(v: float) -> float:
+        return torch.tensor(v, dtype=dtype).item()
+
+    theta = rnd((lmax + lmin) / 2.0)
+    delta = rnd((lmax - lmin) / 2.0)
+    sigma1 = rnd(theta / delta)
+    rho = rnd(1.0 / sigma1)
+    steps = []
+    for _ in range(maxiter):
+        rho_new = rnd(1.0 / rnd(rnd(2.0 * sigma1) - rho))
+        steps.append((rnd(rho_new * rho), rnd(rnd(2.0 * rho_new) / delta)))
+        rho = rho_new
+    return theta, tuple(steps)
 
 
 def chebyshev(
@@ -41,32 +72,18 @@ def chebyshev(
     over all of ``b``.  ``converged`` reports ``rnorm <= rtol * rnorm0``
     (always False at the default rtol=0: a fixed-iteration smoother makes
     no convergence claim)."""
-    dtype = b.dtype
-
-    def rnd(v: float) -> float:
-        return torch.tensor(v, dtype=dtype).item()
-
     def norm(v: torch.Tensor) -> torch.Tensor:
         if batched:
             return torch.sqrt(torch.sum(v * v, dim=tuple(range(1, v.dim()))))
         return torch.sqrt(torch.sum(v * v))
 
-    theta = rnd((lmax + lmin) / 2.0)
-    delta = rnd((lmax - lmin) / 2.0)
-    sigma1 = rnd(theta / delta)
     if x0 is None:
         x, r = torch.zeros_like(b), b   # x0 = 0 => r0 = b exactly
     else:
         x, r = x0, b - matvec(x0)
     rnorm0 = norm(r)
-    d = r / theta
-    rho = rnd(1.0 / sigma1)
-    for _ in range(maxiter):
-        x = x + d
-        r = r - matvec(d)
-        rho_new = rnd(1.0 / rnd(rnd(2.0 * sigma1) - rho))
-        d = rnd(rho_new * rho) * d + rnd(rnd(2.0 * rho_new) / delta) * r
-        rho = rho_new
+    x, r = chebyshev_steps(matvec, x, r, chebyshev_coefficients(
+        float(lmin), float(lmax), maxiter, b.dtype))
     rnorm = norm(r)
     iters = (torch.full(rnorm.shape, maxiter, dtype=torch.int32,
                         device=b.device) if batched else maxiter)

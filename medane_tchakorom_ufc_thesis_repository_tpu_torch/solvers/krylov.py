@@ -66,15 +66,20 @@ def _ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     return torch.where(nz, num / torch.where(nz, den, 1.0), 0.0)
 
 
+def _entry_norms(r, rnorm0, rtol, atol, dot):
+    """``(rs, rnorm0, tol)`` of the residual ``r`` at entry."""
+    rs = dot(r, r)
+    rn0 = torch.sqrt(rs) if rnorm0 is None else torch.as_tensor(
+        rnorm0, dtype=r.dtype, device=r.device).expand(rs.shape)
+    return rs, rn0, torch.clamp_min(rtol * rn0, atol)
+
+
 def _start(matvec, b, x0, rnorm0, rtol, atol, dot):
     """``(x, r, rs, rnorm0, tol)`` at entry: ``x0 = None`` is the zero
     guess, whose residual is ``b`` exactly (no matvec)."""
     x = torch.zeros_like(b) if x0 is None else x0
     r = b if x0 is None else b - matvec(x0)
-    rs = dot(r, r)
-    rn0 = torch.sqrt(rs) if rnorm0 is None else torch.as_tensor(
-        rnorm0, dtype=b.dtype, device=b.device).expand(rs.shape)
-    return x, r, rs, rn0, torch.clamp_min(rtol * rn0, atol)
+    return (x, r) + _entry_norms(r, rnorm0, rtol, atol, dot)
 
 
 def _count(iters, live, step: int, batched: bool):
@@ -124,49 +129,99 @@ def cg(
     """
     if batched and matvec_axpy_dot is not None:
         raise ValueError("matvec_axpy_dot serves one system, not a batch")
-    dtype = b.dtype
-    dot, col, commit = _batch_ops(batched)
+    dot = _batch_ops(batched)[0]
     x, r, rs, rn0, tol = _start(matvec, b, x0, rnorm0, rtol, atol, dot)
-    p = torch.zeros_like(b)
-    rz = torch.ones_like(rs)
+    s = PCGState(x=x, r=r, p=torch.zeros_like(b), rs=rs,
+                 rz=torch.ones_like(rs))
     iters = torch.zeros_like(rs, dtype=torch.int32) if batched else 0
     trips = syncs = 0
     while trips < maxiter:
-        live = torch.sqrt(rs) > tol
-        if divtol > 0.0:
-            live = live & (torch.sqrt(rs) <= divtol * rn0)
+        live = pcg_live(s.rs, tol, rn0, divtol)
         syncs += 1
         if not bool(live.any() if batched else live):
             break
-        if precond_dot is not None:
-            z, rz_loc = precond_dot(r)
-            rz_new = rz_loc.to(dtype)
-        else:
-            z = r if precond is None else precond(r)
-            rz_new = dot(r, z)
-        beta = torch.zeros_like(rz) if trips == 0 else _ratio(rz_new, rz)
-        if matvec_axpy_dot is not None:
-            p_new, ap, pap = matvec_axpy_dot(z, p, beta)
-            pap = pap.to(dtype)
-        else:
-            p_new = z + col(beta) * p
-            if matvec_dot is not None:
-                ap, pap = matvec_dot(p_new)
-            else:
-                ap = matvec(p_new)
-                pap = dot(p_new, ap)
-        alpha = col(_ratio(rz_new, pap))
-        r_new = r - alpha * ap
-        x = commit(live, x + alpha * p_new, x)
-        p = commit(live, p_new, p)
-        rs = commit(live, dot(r_new, r_new), rs)
-        r = commit(live, r_new, r)
-        rz = commit(live, rz_new, rz)
+        pcg_iteration(s, trips == 0, live, matvec=matvec, precond=precond,
+                      precond_dot=precond_dot, matvec_dot=matvec_dot,
+                      matvec_axpy_dot=matvec_axpy_dot, batched=batched)
         iters = _count(iters, live, 1, batched)
         trips += 1
-    rnorm = torch.sqrt(rs)
-    return KrylovResult(x=x, iters=iters, resnorm=rnorm, resnorm0=rn0,
+    rnorm = torch.sqrt(s.rs)
+    return KrylovResult(x=s.x, iters=iters, resnorm=rnorm, resnorm0=rn0,
                         converged=rnorm <= tol, syncs=syncs)
+
+
+@dataclasses.dataclass
+class PCGState:
+    """The state PCG carries from one iteration to the next."""
+
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    rs: torch.Tensor       # r · r
+    rz: torch.Tensor       # r · z of the last iteration
+
+
+def pcg_live(rs, tol, rn0, divtol: float) -> torch.Tensor:
+    """CG's loop test on the device: the residual is above ``tol`` and,
+    when ``divtol > 0``, not above ``divtol * rn0``."""
+    live = torch.sqrt(rs) > tol
+    if divtol > 0.0:
+        live = live & (torch.sqrt(rs) <= divtol * rn0)
+    return live
+
+
+def pcg_iteration(s: PCGState, first, live=None, *, matvec, precond=None,
+                  precond_dot=None, matvec_dot=None, matvec_axpy_dot=None,
+                  batched: bool = False, in_place: bool = False) -> None:
+    """One iteration of ``cg`` on the state ``s``, which it updates: the
+    body of ``cg``'s loop and of the north-star's CUDA graph
+    (``solvers/refine.py``), the same operations in the same order.
+
+    ``first``: the first iteration, where ``beta = 0``; a bool, or a 0-d
+    bool tensor on the device (a graph replays one body for every
+    iteration), where ``torch.where`` selects the same +0.  ``live``: the
+    systems of a batch that iterate (``batched`` only).  ``in_place``
+    (one system): x, r and p are written into their own storage, rs and
+    rz copied into theirs, so that a graph's state stays in static
+    buffers; the values are those of the other form to the bit."""
+    if in_place and (batched or matvec_axpy_dot is not None):
+        raise ValueError("in_place serves one system without matvec_axpy_dot")
+    dtype = s.r.dtype
+    dot, col, commit = _batch_ops(batched)
+    if precond_dot is not None:
+        z, rz_loc = precond_dot(s.r)
+        rz_new = rz_loc.to(dtype)
+    else:
+        z = s.r if precond is None else precond(s.r)
+        rz_new = dot(s.r, z)
+    if isinstance(first, torch.Tensor):
+        beta = torch.where(first, torch.zeros_like(s.rz),
+                           _ratio(rz_new, s.rz))
+    else:
+        beta = torch.zeros_like(s.rz) if first else _ratio(rz_new, s.rz)
+    if matvec_axpy_dot is not None:
+        p_new, ap, pap = matvec_axpy_dot(z, s.p, beta)
+        pap = pap.to(dtype)
+    else:
+        p_new = torch.add(z, col(beta) * s.p, out=s.p if in_place else None)
+        if matvec_dot is not None:
+            ap, pap = matvec_dot(p_new)
+        else:
+            ap = matvec(p_new)
+            pap = dot(p_new, ap)
+    alpha = col(_ratio(rz_new, pap))
+    if in_place:
+        torch.sub(s.r, alpha * ap, out=s.r)
+        torch.add(s.x, alpha * p_new, out=s.x)
+        s.rs.copy_(dot(s.r, s.r))
+        s.rz.copy_(rz_new)
+        return
+    r_new = s.r - alpha * ap
+    s.x = commit(live, s.x + alpha * p_new, s.x)
+    s.p = commit(live, p_new, s.p)
+    s.rs = commit(live, dot(r_new, r_new), s.rs)
+    s.r = commit(live, r_new, s.r)
+    s.rz = commit(live, rz_new, s.rz)
 
 
 def bicgstab(

@@ -3,9 +3,10 @@ JAX package's ``solvers/multigrid.py``).
 
 Cell-centered factor-2 coarsening, damped-Jacobi smoothing with the
 dimension-optimal weight (4/5 in 2D, 6/7 in 3D, over ``diag``), a
-Chebyshev coarse solve under the exact Dirichlet spectral bounds, and V
-or W cycles from the zero guess: a fixed symmetric linear operation,
-valid as a CG preconditioner.  The operators use the h^2-scaled
+Chebyshev coarse solve under the exact Dirichlet spectral bounds (one
+launch of kernel M, ``ops/coarse.py``, on a coarsest grid of at most
+``coarse.MAX_POINTS`` points), and V or W cycles from the zero guess: a
+fixed symmetric linear operation, valid as a CG preconditioner.  The operators use the h^2-scaled
 convention (stencil (2d, -1) at every level), so the (2h)^2/h^2 scaling
 is a single ``4 *`` on each restricted residual.  Transfers are
 piecewise constant (``'pwc'``: mean restriction, replication) or linear
@@ -35,7 +36,11 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.core.operators import (
     Stencil2D,
     Stencil3D,
 )
-from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.chebyshev import chebyshev
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import coarse
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.chebyshev import (
+    chebyshev,
+    chebyshev_coefficients,
+)
 
 _JACOBI_OMEGA = {2: 0.8, 3: 6.0 / 7.0}   # optimal high-frequency damping
 
@@ -199,8 +204,15 @@ def vcycle(levels: MGLevels, b: torch.Tensor, level: int = 0,
         if cast_dtype is not None:
             b = b.to(cast_dtype)   # one-level hierarchy
         lmin, lmax = _dirichlet_bounds(dims, levels.diag, levels.off)
-        x = chebyshev(A.mv, b, maxiter=levels.coarse_iters, lmin=lmin,
-                      lmax=lmax).x
+        if coarse.fits(dims, levels.coarse_iters):
+            # kernel M: every step in one launch, the loop's bits
+            x = coarse.chebyshev_coarse(
+                b.contiguous(), dims=dims, diag=levels.diag, off=levels.off,
+                coefs=chebyshev_coefficients(lmin, lmax, levels.coarse_iters,
+                                             b.dtype))
+        else:
+            x = chebyshev(A.mv, b, maxiter=levels.coarse_iters, lmin=lmin,
+                          lmax=lmax).x
         x = x if out_dtype is None else x.to(out_dtype)
         return (x, None) if rdot else x
 

@@ -4,6 +4,7 @@ north-star (``solvers/refine.py``), the state carried across from JAX
 to run without a card."""
 
 import ast
+import contextlib
 import subprocess
 import sys
 from pathlib import Path
@@ -110,6 +111,112 @@ class TestNorthstar:
         x = np.random.default_rng(0).standard_normal(5 * 6 * 7)
         np.testing.assert_array_equal(tref.stencil3d_mv_np(5, 6, 7)(x),
                                       jref.stencil3d_mv_np(5, 6, 7)(x))
+
+
+class TestFusedProgram:
+    """The twin of JAX's ``_df_fused_program`` (``solvers/refine.py``): one
+    cached program for an operator and the nine static parameters, its
+    steps run eagerly on the CPU (CUDA graphs on the card)."""
+
+    PARAMS = (1e-8, 6, 1e-4, 40, 2, 4, 40, "w")
+
+    def test_cached_per_operator_and_parameters(self):
+        op = port.poisson3d(8, 8, 8)
+        prog = tref._df_fused_program(op, *self.PARAMS)
+        assert tref._df_fused_program(port.poisson3d(8, 8, 8),
+                                      *self.PARAMS) is prog
+        others = [(1e-9, 6, 1e-4, 40, 2, 4, 40, "w"),
+                  (1e-8, 5, 1e-4, 40, 2, 4, 40, "w"),
+                  (1e-8, 6, 1e-5, 40, 2, 4, 40, "w"),
+                  (1e-8, 6, 1e-4, 30, 2, 4, 40, "w"),
+                  (1e-8, 6, 1e-4, 40, 1, 4, 40, "w"),
+                  (1e-8, 6, 1e-4, 40, 2, 2, 40, "w"),
+                  (1e-8, 6, 1e-4, 40, 2, 4, 20, "w"),
+                  (1e-8, 6, 1e-4, 40, 2, 4, 40, "v")]
+        for params in others:
+            assert tref._df_fused_program(op, *params) is not prog
+        assert tref._df_fused_program(port.poisson3d(8, 8, 4),
+                                      *self.PARAMS) is not prog
+        assert tref._df_fused_program(port.poisson2d(8, 8),
+                                      *self.PARAMS) is not prog
+
+    @pytest.mark.parametrize("dims", [(16, 16, 16), (64, 64)])
+    def test_program_is_the_eager_solve(self, dims):
+        """The program's steps against ``df_iterative_refinement`` around
+        ``cg``: the same PCG counts and x to the bit, twice in a row (the
+        second call reuses the program's buffers)."""
+        op = (port.poisson3d if len(dims) == 3 else port.poisson2d)(*dims)
+        bhi = op.mv(torch.ones(dims))
+        b_df = (bhi, torch.zeros_like(bhi))
+        Md = port.mg_preconditioner(op, return_rdot=True)
+        iters = []
+
+        def solve_f32(r):
+            res = port.cg(op.mv, r, rtol=1e-4, maxiter=40, precond_dot=Md,
+                          matvec_dot=getattr(op, "mv_dot", None))
+            iters.append(res.iters)
+            return res.x
+
+        re = tref.df_iterative_refinement(op, None, solve_f32, rtol=1e-8,
+                                          b_df=b_df, return_host=False)
+        for _ in range(2):
+            rp = port.df_northstar_fused(op, b_df, rtol=1e-8, inner_rtol=1e-4)
+            assert rp.converged and rp.pcg_iters == iters
+            assert rp.passes == re.passes
+            assert rp.syncs == sum(rp.pcg_iters) + 2 * rp.passes + 2
+            for a, b in zip(rp.x, re.x):
+                np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+    def test_2d_matches_jax(self):
+        """A 2D case of the program against JAX's ``df_northstar_fused``:
+        the same pass count, both to 1e-8 checked in f64 on the host."""
+        n = 64
+        rj = jref.df_northstar_fused(jpoisson.poisson2d(n, n), rtol=1e-8)
+        b = jref.stencil2d_mv_np(n, n)(np.ones(n * n)).reshape(n, n)
+        b_df = convert.df_pair_from_numpy(b.astype(np.float32),
+                                          np.zeros_like(b, np.float32), "cpu")
+        rt = port.df_northstar_fused(port.poisson2d(n, n), b_df, rtol=1e-8)
+        assert rt.converged and rj.converged
+        assert rt.passes == rj.passes <= 3
+        mv = jref.stencil2d_mv_np(n, n)
+        for x64 in (tdf.df_to_f64(rt.x), jdf.df_to_f64(rj.x)):
+            rel = (np.linalg.norm(b.reshape(-1) - mv(x64.reshape(-1)))
+                   / np.linalg.norm(b))
+            assert rel <= 1e-8 and np.abs(x64 - 1.0).max() <= 1e-7
+
+
+class TestCountedGraph:
+    """``ops/build.CountedGraph`` with a stand-in for the CUDA graph: a
+    capture launches nothing, so its counts are taken back out; every
+    replay adds them again."""
+
+    class Graph:
+        replays = 0
+
+        def replay(self):
+            self.replays += 1
+
+    def test_capture_and_replays(self):
+        from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import build
+
+        build.reset_launch_counts()
+        build.launches["a"] += 2           # launched before the capture
+        stand_in = self.Graph()
+        g = build.CountedGraph(stand_in, contextlib.nullcontext)
+
+        def body():
+            build.launches["a"] += 1
+            build.launches["b"] += 3
+            return "out"
+
+        assert g.capture(body) == "out"
+        assert build.launch_counts() == {"a": 2}
+        assert dict(g.launches) == {"a": 1, "b": 3}
+        g.replay()
+        g.replay()
+        assert stand_in.replays == 2
+        assert build.launch_counts() == {"a": 4, "b": 6}
+        build.reset_launch_counts()
 
 
 class TestConvert:
