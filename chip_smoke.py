@@ -141,7 +141,26 @@ from this checkout and nothing of JAX, and:
    must lie under the bound.  Prints iterations, launches, set-up and
    solve times (median of 3 more solves), peak memory, the device-busy
    share of one AIJ solve, and beside kernel H on the solve's matrix the
-   time of its gathers alone (``torch.index_select``).
+   time of its gathers alone (``torch.index_select``);
+10. stacked phase, in f32: general sparse matrices in the multisplitting
+   drivers, block-split into 2 (``block_split_ell``) and routed by
+   ``as_stacked_routed_operator``.  The 2D Poisson matrix of 1024^2 must
+   route to ``StackedDIAOperator`` and SMSM_GLOBAL (s=4, inner GMRES(30),
+   rtol 1e-3) runs on it beside the stencil strips, then with inner
+   ``pc='bjacobi'`` (blocks of 64); in f64 the two routes' sweeps must lie
+   within 2 of each other.  The API phase's block-sparse matrix (4096
+   blocks of 64) must route to ``StackedBSROperator`` (kernel I on the
+   block-diagonal pack and on the coupling, held against its plain version
+   and timed beside the torch sparse BSR product) and SM with inner
+   GMRES + ``pc='bjacobi'`` runs on it.  A structureless symmetric matrix
+   of n = 2^20 must stay on ``StackedELLOperator`` with a warning (kernel H
+   on its two CSRs, held and timed the same way) and SM with inner GMRES +
+   ``pc='jacobi'`` (each block's own diagonal) runs on it.  Each solve is
+   counted once (kernels H, I, F, G as its route needs), must converge to
+   its rtol recomputed in f64 on the host against the matrix, and is timed
+   (median of 3).  Then ``StencilStrip2D(2048, 4096).mv_full`` against
+   the strip rows of the 4096^2 stack's ``full_mv``, and
+   ``StencilStrip3D(256, 512, 512).mv`` against kernel A's plain version.
 
 Any failure raises.  The line before the last is a JSON object of the
 kernels; the last line is ``{"ok": true, "device": {...}}``.
@@ -210,7 +229,7 @@ ENTRIES = [
 PHASES = ("kernels", "kernels2d", "fusedkernels", "coarse", "sparse",
           "northstar",
           "fused", "northstar2d", "cycle", "golden", "thesis", "inner",
-          "calibration", "api")
+          "calibration", "api", "stacked")
 # the card's published peaks: memory rate, and f32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = 67e12
@@ -326,6 +345,8 @@ def main() -> None:
             calibration_phase(torch, port, dev, cases["csr_ms_per_nnz"], card)
         elif phase == "api":
             launches.update(api_phase(torch, port, dev, cases, report))
+        elif phase == "stacked":
+            stacked_phase(torch, port, dev, card)
         log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
     if only:
         log(f"partial run of {todo}: no result lines")
@@ -2484,6 +2505,277 @@ def api_phase(torch, port, dev, cases, report) -> dict:
     if total["csr_mv"] == 0 or total["bsr_mv"] == 0:
         raise AssertionError(f"API phase launches {total}")
     return total
+
+
+# ---------------------------------------------------------------------------
+# Stacked phase
+# ---------------------------------------------------------------------------
+
+STACKED_DIA_N = 1024          # the banded cell: 2D Poisson, n x n
+STACKED_BSR = (4096, 64)      # the blockable cell: blocks and block size
+STACKED_ELL_N = 1 << 20       # the structureless cell
+STRIP2D = (4096, 4096)        # StencilStrip2D of this grid, 2 blocks
+STRIP3D = (256, 512, 512)     # StencilStrip3D (rows, ny, nz)
+STACKED_KERNELS = ("csr_mv", "bsr_mv", "mdot", "maxpy")
+
+
+def structureless_spd(np, sp, n: int, seed: int = 1):
+    """The API phase's structureless matrix: ``DRAWS`` random entries a
+    row, symmetrized, made strictly diagonally dominant."""
+    r, c, v = structureless_coo(np, n, DRAWS, seed)
+    B = sp.coo_matrix((v, (r, c)), shape=(n, n)).tocsr()
+    A = ((B + B.T) * 0.5).tocsr()
+    return (A + sp.eye(n, format="csr")
+            * (abs(A).sum(axis=1).max() + 1.0)).tocsr()
+
+
+def stacked_phase(torch, port, dev, card) -> None:
+    """General sparse matrices in the multisplitting drivers, in f32: the
+    banded, blockable and structureless cells, kernels H and I held and
+    timed on the stacked shapes, and the strip operators.  Every line
+    carries the card's name and power limit."""
+    import warnings
+
+    import numpy as np
+    import scipy.sparse as sp
+
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.core import poisson
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import bsr, build, csr
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import stencil3d as k
+
+    def say(msg: str) -> None:
+        log(f"{msg} [{card}]")
+
+    def split_route(label, A, expect, dtype=torch.float32, warn=False):
+        """``A`` block-split into 2 and routed; raises unless the router
+        chose ``expect`` (and warned when ``warn``)."""
+        t0 = time.perf_counter()
+        coo = A.tocoo()
+        a_ii, a_ic = port.block_split_ell(coo.row, coo.col, coo.data,
+                                          A.shape, nblocks=2, dtype=dtype,
+                                          device=dev)
+        split_s = time.perf_counter() - t0
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            op = port.as_stacked_routed_operator(
+                port.StackedELLOperator(a_ii=a_ii, a_ic=a_ic))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        del a_ii, a_ic
+        got = type(op).__name__
+        warned = [w for w in caught if issubclass(w.category, UserWarning)]
+        if got != expect or bool(warned) != warn:
+            raise AssertionError(f"{label}: routed to {got} (expected "
+                                 f"{expect}), warnings {warned}")
+        if got == "StackedDIAOperator":
+            shape = (f"DIA offsets {op.dia_ii.offsets} + coupling "
+                     f"{op.dia_ic.offsets}")
+        elif got == "StackedBSROperator":
+            nb, nbr, w = op.ii_idx.shape
+            stored = op.ii_val.numel() + op.ic.values.numel()
+            shape = (f"c {op.c}, {nb} x {nbr} block rows of width {w}, "
+                     f"coupling width {op.ic.indices.shape[1]}, fill "
+                     f"{stored / A.nnz:.2f}")
+        else:
+            shape = (f"ELL widths {op.a_ii.indices.shape[-1]} + "
+                     f"{op.a_ic.indices.shape[-1]}, fill "
+                     f"{(op.a_ii.values.numel() + op.a_ic.values.numel()) / A.nnz:.2f}"
+                     f"; warned: {str(warned[0].message)[:80]}")
+        say(f"{label}: n={A.shape[0]}, {A.nnz} nonzeros; host set-up "
+            f"{setup_s:.1f} s (split {split_s:.1f} s, route and pack "
+            f"{setup_s - split_s:.1f} s): {got}, {shape}")
+        return op
+
+    def rel_f64(A, x, b) -> float:
+        """||b - A x|| / ||b|| in f64 on the host against the matrix."""
+        x64 = x.double().cpu().numpy().reshape(-1)
+        b64 = b.double().cpu().numpy().reshape(-1)
+        return float(np.linalg.norm(b64 - A @ x64) / np.linalg.norm(b64))
+
+    def run(label, A, op, solve, rtol, need, dtype=torch.float32, reps=3,
+            profile=False):
+        """One counted solve of ``b = A·1`` (``need``: kernels that must
+        have launched), then ``reps`` timed ones, and with ``profile`` one
+        more under the profiler for the device-busy share; returns the
+        result."""
+        b = port.rhs_ones(op, dtype, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = solve(op, b)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = build.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        missing = [m for m in need if counts.get(m, 0) == 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels never launched: {missing}")
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solve(op, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        rel = rel_f64(A, res.x, b)
+        timing = (f"solve {statistics.median(times) * 1e3:.1f} ms median of "
+                  f"{reps} {[round(t * 1e3, 1) for t in times]}"
+                  if reps else "not timed")
+        say(f"{label}: {res.sweeps} sweeps, {res.cycles} cycles, "
+            f"{int(res.inner_iters)} inner iterations, {res.syncs} host "
+            f"syncs, converged {res.converged}; f64 rel {rel:.3e} (rtol "
+            f"{rtol}); {timing} (first run {first_s * 1e3:.1f} ms); peak "
+            f"memory {peak / 2**30:.2f} GiB; launches "
+            f"{ {m: counts.get(m, 0) for m in STACKED_KERNELS} }")
+        if not res.converged or not rel <= rtol:
+            raise AssertionError(f"{label}: converged {res.converged}, f64 "
+                                 f"relative residual {rel:.3e} (rtol {rtol})")
+        if profile:
+            busy_share(torch, f"{label} [{card}]", lambda: solve(op, b),
+                       statistics.median(times) * 1e3)
+        return res
+
+    def kernel_case(what, kernel, plain, library, terms, n_bytes, flops):
+        """Hold a kernel against its plain version (``kernel_phase_sparse``'s
+        tolerance) and time it, the plain version and the library call."""
+        err = hold(torch, what, kernel, plain, torch.float32, terms)
+        ms, plain_ms = median_ms(torch, kernel), median_ms(torch, plain)
+        lib = library_ms(torch, library, what)
+        bnd = bound(n_bytes, flops)
+        say(f"{what}: ok, max error {err:.2e}, kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, library {lib if lib is None else round(lib, 3)}"
+            f" ms, bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}), "
+            f"{100 * bnd['bound_ms'] / ms:.0f}% of it")
+
+    def bsr_case(what, indices, values, n):
+        nbr, width = indices.shape
+        c = values.shape[-1]
+        x = torch.randn(n, device=dev)
+        # torch's BSR tensor holds the blocks untransposed
+        lib = torch.sparse_bsr_tensor(
+            torch.arange(0, nbr * width + 1, width, device=dev,
+                         dtype=torch.int32), indices.reshape(-1),
+            values.reshape(-1, c, c).transpose(1, 2).contiguous(),
+            size=(nbr * c, -(-n // c) * c))
+        xl = torch.nn.functional.pad(x, (0, lib.shape[1] - n))[:, None]
+        kernel_case(f"bsr_mv on {what} ({nbr} block rows, c {c}, width "
+                    f"{width}) f32 k=1",
+                    lambda: bsr.bsr_mv(indices, values, x, n, n),
+                    lambda: bsr.bsr_mv_plain(indices, values, x, n, n),
+                    lambda: lib @ xl, width * c,
+                    nbytes(indices, values) + 2 * n * 4, 2 * values.numel())
+
+    def csr_case(what, m):
+        x = torch.randn(m.ncols, device=dev)
+        lib = torch.sparse_csr_tensor(m.indptr, m.indices, m.data,
+                                      size=m.shape)
+        kernel_case(f"csr_mv on {what} ({m.nrows} rows, {m.nnz} nonzeros, "
+                    f"{csr.csr_blocks(m.nnz)} chunks) f32 k=1",
+                    lambda: csr.csr_mv(m.indptr, m.indices, m.data, x,
+                                       m.nrows, m.ncols,
+                                       partition=m.partition),
+                    lambda: csr.csr_mv_plain(m.indptr, m.indices, m.data, x,
+                                             m.nrows, m.ncols),
+                    lambda: lib @ x,
+                    int((m.indptr[1:] - m.indptr[:-1]).max()),
+                    nbytes(m.indptr, m.indices, m.data) + 2 * m.nrows * 4,
+                    2 * m.nnz)
+
+    # 1. banded -> DIA: the 2D Poisson matrix, beside the stencil strips
+    n = STACKED_DIA_N
+    rows, cols, vals, shape = poisson.poisson2d_coo(n, n)
+    A = sp.coo_matrix((vals, (rows, cols)), shape=shape).tocsr()
+    del rows, cols, vals
+    glob = lambda op, b: port.smsm(op, b, scope="global", s=4,  # noqa: E731
+                                   rtol=1e-3, maxiter=2000)
+    sweeps = {}
+    for dtype, reps in ((torch.float64, 0), (torch.float32, 3)):
+        name = str(dtype).split(".")[-1]
+        op = split_route(f"DIA cell {n}^2 {name}", A, "StackedDIAOperator",
+                         dtype)
+        st = port.block_poisson2d(n, n)
+        sweeps[name] = (
+            run(f"SMSM_GLOBAL {n}^2 {name} on StackedDIAOperator", A, op,
+                glob, 1e-3, ("mdot", "maxpy"), dtype, reps,
+                profile=bool(reps)).sweeps,
+            run(f"SMSM_GLOBAL {n}^2 {name} on the stencil strips", A, st,
+                glob, 1e-3, ("stencil2d_apply[mv]", "mdot", "maxpy"), dtype,
+                reps).sweeps)
+    say(f"SMSM_GLOBAL {n}^2 sweeps, DIA route / stencil: f64 "
+        f"{sweeps['float64']}, f32 {sweeps['float32']}")
+    if abs(sweeps["float64"][0] - sweeps["float64"][1]) > 2:
+        raise AssertionError(f"DIA route f64: {sweeps['float64']} sweeps, "
+                             f"more than 2 apart")
+    run(f"SMSM_GLOBAL {n}^2 f32 on StackedDIAOperator, inner "
+        f"pc='bjacobi' (64)", A, op,
+        lambda op, b: port.smsm(op, b, scope="global", s=4, rtol=1e-3,
+                                maxiter=2000, inner=port.InnerConfig(
+                                    pc="bjacobi", pc_block_size=64)),
+        1e-3, ("mdot", "maxpy"))
+    del op, st, A
+    torch.cuda.empty_cache()
+
+    # 2. blockable -> BSR: the API phase's block-sparse matrix
+    t0 = time.perf_counter()
+    A = block_sparse_spd(np, sp, *STACKED_BSR)
+    say(f"BSR cell: matrix built in {time.perf_counter() - t0:.1f} s")
+    op = split_route(f"BSR cell {STACKED_BSR[0]} blocks of "
+                     f"{STACKED_BSR[1]}", A, "StackedBSROperator")
+    nb, nbr, w = op.ii_idx.shape
+    bsr_case("the block-diagonal pack", op.merged_idx,
+             op.ii_val.reshape((nb * nbr,) + op.ii_val.shape[2:]),
+             nb * nbr * op.c)
+    bsr_case("the coupling", op.ic.indices, op.ic.values, A.shape[0])
+    bj = port.InnerConfig(pc="bjacobi", pc_block_size=64)
+    # rtol 1e-5, as the API phase's solve of this matrix: f32 sums of its
+    # rows stall the residual just above 1e-6 (printed below)
+    run("SM on StackedBSROperator, inner gmres + pc='bjacobi' (64)", A, op,
+        lambda op, b: port.sm(op, b, rtol=1e-5, maxiter=200, inner=bj),
+        1e-5, ("bsr_mv", "mdot", "maxpy"), profile=True)
+    b = port.rhs_ones(op, torch.float32, dev)
+    probe = port.sm(op, b, rtol=1e-6, maxiter=40, inner=bj)
+    say(f"SM on StackedBSROperator at rtol 1e-6: {probe.sweeps} sweeps, "
+        f"converged {probe.converged}, f32 rel "
+        f"{float(probe.rnorm / probe.rnorm0):.3e}, f64 rel "
+        f"{rel_f64(A, probe.x, b):.3e}")
+    del op, A, b, probe
+    torch.cuda.empty_cache()
+
+    # 3. structureless -> stays ELL, on kernel H
+    t0 = time.perf_counter()
+    A = structureless_spd(np, sp, STACKED_ELL_N)
+    say(f"ELL cell: matrix built in {time.perf_counter() - t0:.1f} s")
+    op = split_route(f"ELL cell n=2^{STACKED_ELL_N.bit_length() - 1}", A,
+                     "StackedELLOperator", warn=True)
+    csr_case("the block-diagonal CSR", op.csr_ii)
+    csr_case("the coupling CSR", op.csr_ic)
+    run("SM on StackedELLOperator, inner gmres + pc='jacobi'", A, op,
+        lambda op, b: port.sm(op, b, rtol=1e-6, maxiter=200,
+                              inner=port.InnerConfig(pc="jacobi")),
+        1e-6, ("csr_mv", "mdot", "maxpy"), profile=True)
+    del op, A
+    torch.cuda.empty_cache()
+
+    # 4. the strip operators
+    build.reset_launch_counts()
+    st = port.block_poisson2d(*STRIP2D)
+    strip = port.strip2d(*STRIP2D)
+    x = torch.randn((2, st.block_size), device=dev)
+    full = st.full_mv(x)
+    top, bottom = st.halos(x)
+    for i in range(2):
+        e = check(torch, f"StencilStrip2D{(strip.rows, strip.n)}.mv_full, "
+                  f"strip {i}", strip.mv_full(x[i], top[i], bottom[i]),
+                  full[i], "f32")
+    s3 = port.StencilStrip3D(*STRIP3D)
+    x3 = torch.randn(s3.shape[0], device=dev)
+    e3 = check(torch, f"StencilStrip3D{STRIP3D}.mv", s3.mv(x3),
+               k.stencil3d_apply_plain(x3.reshape(STRIP3D), kind="mv",
+                                       diag=s3.diag, off=s3.off).reshape(-1),
+               "f32")
+    say(f"strip operators: ok (2D mv_full max error {e:.2e}, 3D mv "
+        f"{e3:.2e}); launches {build.launch_counts()}")
 
 
 def replay_share(torch, label: str, program, res, solve_ms: float) -> None:

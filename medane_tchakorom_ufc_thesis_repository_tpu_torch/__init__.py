@@ -30,6 +30,15 @@ refinement loops ``iterative_refinement`` / ``device_iterative_refinement``
 / ``df_iterative_refinement``, and the multisplitting inner methods
 ``cg``, ``bicgstab``, ``ca_gmres`` and ``pc='mg'``.
 
+Slice 8, general sparse matrices in the multisplitting drivers: an
+assembled matrix is block-split (``core.poisson.block_split_ell``) into a
+``StackedELLOperator`` and routed by ``as_stacked_routed_operator`` to
+``StackedDIAOperator`` (banded), ``StackedBSROperator`` (blockable, kernel
+I) or left on the stacked ELL (kernel H on its CSR); the inner solves take
+``pc='bjacobi'`` and each block's own Jacobi diagonal.  The strip
+operators ``StencilStrip2D``/``StencilStrip3D`` (``strip2d``/``strip3d``)
+come with it.
+
 On the card every stencil apply, GMRES's Gram-Schmidt pair, and the CSR
 and block-ELL sparse products run hand-written CUDA kernels (``csrc/``,
 ``ops/``); on the CPU the kernels' plain PyTorch versions run.  Entry
@@ -55,21 +64,34 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.core.operators import (
     DenseOp,
     Stencil2D,
     Stencil3D,
+    StencilStrip2D,
+    StencilStrip3D,
     as_routed_operator,
     from_scipy,
     operator_from_coo,
 )
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.core.poisson import (
+    block_split_ell,
     poisson2d,
     poisson3d,
+    strip2d,
+    strip3d,
 )
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.blockops import (
+    BlockOperator,
+    StackedBSROperator,
+    StackedDIAOperator,
+    StackedELLOperator,
     StackedStencil2D,
     StackedStencil3D,
+    as_stacked_routed_operator,
     block_poisson2d,
+    block_poisson2d_ell,
     block_poisson3d,
     final_residual_norm,
+    from_stacked_ell,
     rhs_ones,
+    stacked_bsr_from_ell,
 )
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.multisplitting import (
     InnerConfig,
@@ -113,4 +135,9 @@ __all__ = ["poisson2d", "poisson3d", "Stencil2D", "Stencil3D", "cg", "gmres",
            "DIA", "BSR", "AIJ", "operator_from_coo", "from_scipy",
            "as_routed_operator", "minres", "bicgstab", "default_device",
            "residual_norm_sq", "iterative_refinement",
-           "device_iterative_refinement", "df_iterative_refinement"]
+           "device_iterative_refinement", "df_iterative_refinement",
+           "BlockOperator", "StackedELLOperator", "StackedDIAOperator",
+           "StackedBSROperator", "as_stacked_routed_operator",
+           "from_stacked_ell", "stacked_bsr_from_ell", "block_poisson2d_ell",
+           "block_split_ell", "StencilStrip2D", "StencilStrip3D", "strip2d",
+           "strip3d"]

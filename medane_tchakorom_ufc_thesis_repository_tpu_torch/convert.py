@@ -27,8 +27,13 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.core.operators import (
     DenseOp,
     Stencil2D,
     Stencil3D,
+    StencilStrip2D,
+    StencilStrip3D,
 )
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.blockops import (
+    StackedBSROperator,
+    StackedDIAOperator,
+    StackedELLOperator,
     StackedStencil2D,
     StackedStencil3D,
 )
@@ -54,6 +59,8 @@ _OPERATORS = {
     "Stencil3D": (Stencil3D, ("nx", "ny", "nz")),
     "StackedStencil2D": (StackedStencil2D, ("m", "n", "nblocks")),
     "StackedStencil3D": (StackedStencil3D, ("nx", "ny", "nz", "nblocks")),
+    "StencilStrip2D": (StencilStrip2D, ("rows", "n")),
+    "StencilStrip3D": (StencilStrip3D, ("rows", "ny", "nz")),
 }
 # MultisplitResult fields that are arrays (the rest are counts and flags)
 _RESULT_ARRAYS = ("x", "inner_iters", "rnorm", "rnorm0", "local_rnorms",
@@ -61,25 +68,35 @@ _RESULT_ARRAYS = ("x", "inner_iters", "rnorm", "rnorm0", "local_rnorms",
 _RESULT_FLAGS = ("converged", "certified")
 
 
-# the assembled formats: (class, array fields, plain fields)
+# the assembled formats and the stacked sparse operators: (class, array
+# fields, plain fields); a field holding another of these formats is
+# converted with it
 _ASSEMBLED = {
     "DenseOp": (DenseOp, ("a",), ()),
     "ELL": (ELL, ("indices", "values"), ("ncols",)),
     "DIA": (DIA, ("data",), ("offsets",)),
     "BSR": (BSR, ("indices", "values", "indices_t", "values_t"),
             ("nrows", "ncols")),
+    "StackedELLOperator": (StackedELLOperator, ("a_ii", "a_ic"), ()),
+    "StackedDIAOperator": (StackedDIAOperator, ("dia_ii", "dia_ic"),
+                           ("nblocks",)),
+    "StackedBSROperator": (StackedBSROperator,
+                           ("ii_idx", "ii_val", "ii_diag", "ic"),
+                           ("nblocks", "block_size")),
 }
 
 
 def from_jax_operator(op, device=None):
     """The port's operator with the class, shape and values of the JAX
     package's ``op``: a matrix-free stencil (``Stencil2D``, ``Stencil3D``,
-    ``StackedStencil2D``, ``StackedStencil3D``) or an assembled format
-    (``DenseOp``, ``ELL``, ``DIA``, ``BSR``), whose arrays land on
-    ``device`` (None: the current CUDA device).  A BSR operator that
-    shares its transpose pack keeps sharing it.  The JAX ``AIJ`` keeps
-    only its routed plan: build the port's from the COO triplets with
-    ``aij_from_coo``."""
+    ``StackedStencil2D``, ``StackedStencil3D``, ``StencilStrip2D``,
+    ``StencilStrip3D``), an assembled format (``DenseOp``, ``ELL``,
+    ``DIA``, ``BSR``) or a stacked sparse operator
+    (``StackedELLOperator``, ``StackedDIAOperator``,
+    ``StackedBSROperator``), whose arrays land on ``device`` (None: the
+    current CUDA device).  A BSR pack that shares its transpose pack keeps
+    sharing it.  The JAX ``AIJ`` keeps only its routed plan: build the
+    port's from the COO triplets with ``aij_from_coo``."""
     name = type(op).__name__
     if name in _ASSEMBLED:
         cls, arrays, plain = _ASSEMBLED[name]
@@ -88,7 +105,10 @@ def from_jax_operator(op, device=None):
         for f in arrays:
             a = getattr(op, f)
             if id(a) not in seen:
-                seen[id(a)] = tensor_from_numpy(np.asarray(a), device)
+                seen[id(a)] = (
+                    from_jax_operator(a, device)
+                    if type(a).__name__ in _ASSEMBLED
+                    else tensor_from_numpy(np.asarray(a), device))
             kw[f] = seen[id(a)]
         for f in plain:
             v = getattr(op, f)

@@ -9,6 +9,9 @@ names, so that ``info["operator"]`` reads the same in both packages.
     kernel of ``ops/stencil2d.py`` or ``ops/stencil3d.py``, at every size
     and shape.  Methods take the flat vector or the grid and return the
     same shape; unknown order is the grid flattened C-style.
+``StencilStrip2D`` / ``StencilStrip3D``
+    One block's row strip of those operators: ``mv`` is the strip's
+    diagonal block (kernel E or A), ``coupling`` the halo term.
 ``DenseOp``, ``DIA``, ``ELL``
     Dense, diagonal and ELLPACK storage; their products are plain PyTorch
     (a matmul, shifted slices, a gather and row sum), as the JAX package
@@ -199,6 +202,98 @@ class Stencil3D:
         return k.stencil3d_residual_restrict(self._grid(x), self._grid(b),
                                              diag=self.diag, off=self.off,
                                              scale=scale)
+
+
+def _strip_coupling(rows_shape, off: float, halo_top: torch.Tensor,
+                    halo_bottom: torch.Tensor) -> torch.Tensor:
+    """``A_ij x_j`` of a strip of shape ``rows_shape``: ``off`` times the
+    peer's boundary row (2D) or plane (3D) on each cut side, flat."""
+    c = torch.zeros(rows_shape, dtype=halo_top.dtype, device=halo_top.device)
+    c[0] = off * halo_top.reshape(rows_shape[1:])
+    c[-1] += off * halo_bottom.reshape(rows_shape[1:])
+    return c.reshape(-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilStrip2D:
+    """One block's row strip of the 2D operator, matrix-free: ``rows`` grid
+    rows of ``n`` (``m / nblocks``, the reference's
+    ``divideSubDomainIntoBlockMatrices``, ``utils.c:450-478``).  Split on
+    grid rows, the coupling ``A_ij x_j`` is one halo row on each cut
+    side."""
+
+    rows: int
+    n: int
+    diag: float = 4.0
+    off: float = -1.0
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.rows * self.n, self.rows * self.n)
+
+    @property
+    def nnz(self) -> int:
+        r, n = self.rows, self.n
+        return 5 * r * n - 2 * r - 2 * n
+
+    def mv(self, x: torch.Tensor) -> torch.Tensor:
+        """``A_ii x`` with zero halos (kernel E), for the flat strip or the
+        ``(rows, n)`` grid, or a stack of either."""
+        y = stencil2d_apply(x.reshape(-1, self.rows, self.n), diag=self.diag,
+                            off=self.off)
+        return y.reshape(x.shape)
+
+    rmv = mv  # A_ii is symmetric
+
+    def coupling(self, halo_top: torch.Tensor,
+                 halo_bottom: torch.Tensor) -> torch.Tensor:
+        """``A_ij x_j`` from the peer grid rows above (``halo_top``, zeros
+        for the first block) and below (``halo_bottom``), each of ``n``."""
+        return _strip_coupling((self.rows, self.n), self.off, halo_top,
+                               halo_bottom)
+
+    def mv_full(self, x, halo_top, halo_bottom) -> torch.Tensor:
+        """The strip's full product ``A_ii x_i + A_ij x_j``, flat."""
+        return self.mv(x).reshape(-1) + self.coupling(halo_top, halo_bottom)
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilStrip3D:
+    """One block's strip of the 3D operator, split on the x axis; halos are
+    ``(ny, nz)`` planes."""
+
+    rows: int
+    ny: int
+    nz: int
+    diag: float = 6.0
+    off: float = -1.0
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        size = self.rows * self.ny * self.nz
+        return (size, size)
+
+    @property
+    def nnz(self) -> int:
+        r, ny, nz = self.rows, self.ny, self.nz
+        return 7 * r * ny * nz - 2 * (r * ny + r * nz + ny * nz)
+
+    def mv(self, x: torch.Tensor) -> torch.Tensor:
+        """``A_ii x`` with zero halos (kernel A, kind ``mv``), for the flat
+        strip or the ``(rows, ny, nz)`` grid."""
+        y = k.stencil3d_apply(x.reshape(self.rows, self.ny, self.nz),
+                              kind="mv", diag=self.diag, off=self.off)
+        return y.reshape(x.shape)
+
+    rmv = mv
+
+    def coupling(self, halo_top: torch.Tensor,
+                 halo_bottom: torch.Tensor) -> torch.Tensor:
+        return _strip_coupling((self.rows, self.ny, self.nz), self.off,
+                               halo_top, halo_bottom)
+
+    def mv_full(self, x, halo_top, halo_bottom) -> torch.Tensor:
+        return self.mv(x).reshape(-1) + self.coupling(halo_top, halo_bottom)
 
 
 # ---------------------------------------------------------------------------
@@ -728,7 +823,7 @@ def _route_unbanded_square_coo(rows, cols, vals, shape, dtype, max_bsr_cost,
                 f"blockable; using HIGH-fill BSR(bs={bs}) at an "
                 f"estimated {cost:.0f}x per-nonzero cost — still "
                 f"~{aij_cost / max(cost, 1e-9):.1f}x faster "
-                "than the routed-gather AIJ (pass max_bsr_cost=inf to "
+                "than the AIJ's CSR on kernel H (pass max_bsr_cost=inf to "
                 "silence, or max_dense_n/max_bsr_cost to reroute)",
                 UserWarning, stacklevel=3)
             return BSR.from_coo(rows, cols, vals, shape, bs=bs, dtype=dtype,

@@ -41,6 +41,9 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.blockops import (
 )
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops.fused import maxpy
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers import krylov
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.bjacobi import (
+    BlockJacobi,
+)
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.chebyshev import (
     chebyshev,
 )
@@ -64,15 +67,16 @@ class InnerConfig:
 
     ``method``: 'gmres', 'cg', 'bicgstab', 'chebyshev' or 'ca_gmres'
     (s-step GMRES with ``s = restart``, one Gram matrix per cycle).
-    ``pc``: 'none', 'jacobi' (left diagonal scaling), 'mg' (one multigrid
-    cycle on the strip's diagonal block, ``solvers/multigrid.py``) or
-    'bjacobi' (block inverses of ``pc_block_size``; it belongs to the
-    stacked ELL/DIA/BSR operators, which are not ported, and raises).
-    With 'gmres' a pc is PETSc's default left preconditioning; 'cg' and
-    'bicgstab' take 'mg' as a true-residual preconditioner; 'chebyshev'
-    and 'ca_gmres' take none.  ``basis``: 'native' or 'bf16' Krylov-basis
-    storage.  ``eig_min``/``eig_max``: the spectral bounds of 'chebyshev'
-    and 'ca_gmres' (default: the operator's analytic ``diag_eig_bounds()``,
+    ``pc``: 'none', 'jacobi' (left diagonal scaling by each block's own
+    diagonal), 'mg' (one multigrid cycle on the strip's diagonal block,
+    ``solvers/multigrid.py``; stencil strips) or 'bjacobi' (the inverses
+    of each ``A_ii``'s ``pc_block_size`` diagonal sub-blocks; the stacked
+    ELL/DIA/BSR operators).  With 'gmres' a pc is PETSc's default left
+    preconditioning; 'cg' and 'bicgstab' take 'mg' and 'bjacobi' as a
+    true-residual preconditioner; 'chebyshev' and 'ca_gmres' take none.
+    ``basis``: 'native' or 'bf16' Krylov-basis storage.
+    ``eig_min``/``eig_max``: the spectral bounds of 'chebyshev' and
+    'ca_gmres' (default: the operator's analytic ``diag_eig_bounds()``,
     else a Lanczos estimate over the blocks).
     """
 
@@ -199,6 +203,25 @@ def _block_args(args, i: int):
     return args[i]
 
 
+def _bjacobi_inner_inv(op: BlockOperator, cfg: InnerConfig,
+                       only_block: Optional[int] = None):
+    """``(k, nbb, p, p)`` inverses of the ``p = pc_block_size`` diagonal
+    sub-blocks of each ``A_ii`` for ``pc='bjacobi'`` (None for other pcs):
+    every block's (``k = nblocks``), or with ``only_block`` that block's
+    alone (``k = 1``).  The stacked sparse operators factor them on the
+    host once per ``p`` and keep them (``diag_block_inverses``)."""
+    if cfg.pc != "bjacobi":
+        return None
+    inverses = getattr(op, "diag_block_inverses", None)
+    if inverses is None:
+        raise ValueError(
+            "pc='bjacobi' needs a sparse-family stacked operator "
+            f"(ELL/DIA/BSR), got {type(op).__name__}; stencil strips "
+            "use pc='mg'")
+    inv = inverses(cfg.pc_block_size)
+    return inv if only_block is None else inv[only_block:only_block + 1]
+
+
 def _lanczos_block_bounds(op: BlockOperator, method: str):
     """The union over the blocks of each ``A_ii``'s Lanczos-estimated
     spectral interval (PETSc's ``-ksp_chebyshev_esteig``): a wider
@@ -268,13 +291,18 @@ def _make_single_inner(op: BlockOperator, cfg: InnerConfig,
             bounds = op.diag_eig_bounds()
         else:
             bounds = _lanczos_block_bounds(op, cfg.method)
-    if cfg.pc == "bjacobi":
-        raise NotImplementedError(
-            "inner pc='bjacobi' needs a sparse-family stacked operator "
-            "(stacked ELL/DIA/BSR, not ported yet: ROADMAP Queue 1, item 9); "
-            f"got {type(op).__name__}; stencil strips use pc='mg'")
-
     blocks = range(op.nblocks) if only_block is None else [only_block]
+    binv = _bjacobi_inner_inv(op, cfg, only_block)
+    bj_M = (None if binv is None
+            else BlockJacobi(inv_blocks=binv, n=op.block_size).apply)
+    dvec = None
+    if cfg.pc == "jacobi":
+        # each block's own diagonal (constant on the stencil strips)
+        args = op.diag_mv_args
+        dvec = torch.stack([
+            op.single_diag_vector(_block_args(args, i), op.block_size)
+            for i in blocks])
+    precond = mg_M if mg_M is not None else bj_M
 
     def one_mv(row: int):
         """``A_ii`` of the block in row ``row`` of ``rhs``, on one vector."""
@@ -288,27 +316,27 @@ def _make_single_inner(op: BlockOperator, cfg: InnerConfig,
         if cfg.pc == "jacobi":
             # left diagonal preconditioning: (D^-1 A) x = D^-1 b, tested in
             # the preconditioned norm (PETSc's default)
-            dinv = 1.0 / op.single_diag_vector(None, rhs.shape[-1]).to(rhs)
+            dinv = 1.0 / dvec.to(rhs)
             mv = lambda v: dinv * block_mv(v)   # noqa: E731
             rhs = dinv * rhs
-        elif cfg.pc == "mg" and cfg.method == "gmres":
-            # left multigrid preconditioning (convergence in the
-            # preconditioned norm); CG and BiCGStab take mg_M as a
+        elif precond is not None and cfg.method == "gmres":
+            # left multigrid or block-Jacobi preconditioning (convergence
+            # in the preconditioned norm); CG and BiCGStab take it as a
             # true-residual preconditioner instead
-            mv = lambda v: mg_M(block_mv(v))    # noqa: E731
-            rhs = mg_M(rhs)
+            mv = lambda v: precond(block_mv(v))    # noqa: E731
+            rhs = precond(rhs)
         if cfg.method == "chebyshev":
             return chebyshev(mv, rhs, x, lmin=bounds[0], lmax=bounds[1],
                              maxiter=cfg.maxiter, batched=True)
         if cfg.method == "cg":
             return krylov.cg(mv, rhs, x, maxiter=cfg.maxiter, rtol=cfg.rtol,
-                             atol=cfg.atol, precond=mg_M, batched=True)
+                             atol=cfg.atol, precond=precond, batched=True)
         if cfg.method == "bicgstab":
-            # mg enters as a right preconditioner (true-residual test);
-            # jacobi is already folded into mv and rhs
+            # mg or bjacobi enters as a right preconditioner (true-residual
+            # test); jacobi is already folded into mv and rhs
             return krylov.bicgstab(mv, rhs, x, maxiter=cfg.maxiter,
                                    rtol=cfg.rtol, atol=cfg.atol,
-                                   precond=mg_M, batched=True)
+                                   precond=precond, batched=True)
         if cfg.method == "ca_gmres":
             # s-step GMRES over the block spectrum, one Gram matrix per
             # cfg.restart matvecs; one solve per block (ca_gmres takes one

@@ -28,7 +28,8 @@ __all__ = ["BlockJacobi", "block_jacobi_from_coo", "block_jacobi_from_scipy"]
 class BlockJacobi:
     """``M ~= blkdiag(A)^{-1}``.  ``inv_blocks``: ``(nb, bs, bs)`` inverses
     of the diagonal blocks (padded tail rows carry identity); ``n`` is the
-    true vector length."""
+    true vector length.  A stack ``(k, nb, bs, bs)`` holds the inverses of
+    ``k`` matrices, one for each row of an ``r`` of shape ``(k, n)``."""
 
     inv_blocks: torch.Tensor
     n: int
@@ -40,7 +41,7 @@ class BlockJacobi:
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         """``z = M r`` for ``r`` of shape ``(n,)`` or ``(k, n)``: pad to a
         block multiple, one batched product, cut."""
-        nb, bs, _ = self.inv_blocks.shape
+        nb, bs = self.inv_blocks.shape[-3:-1]
         rb = F.pad(r, (0, nb * bs - self.n)).reshape(r.shape[:-1] + (nb, bs))
         z = full_matmul(self.inv_blocks, rb[..., None])[..., 0]
         return z.reshape(r.shape[:-1] + (-1,))[..., : self.n]

@@ -292,14 +292,15 @@ class TestRejects:
         ("cg", "none"), ("bicgstab", "none"), ("ca_gmres", "none"),
         ("gmres", "bjacobi"), ("gmres", "mg")])
     def test_not_ported(self, method, pc):
-        """Of the inner options that once waited, only ``pc='bjacobi'``
-        still does (it belongs to the stacked sparse operators); the
-        others run."""
+        """The inner options that once waited for their port run on the
+        stencil strips, but ``pc='bjacobi'``, which belongs to the stacked
+        sparse operators: on a stencil stack it raises JAX's
+        ``ValueError``."""
         op = tbo.block_poisson2d(8, 8)
         b = tbo.rhs_ones(op, torch.float64, "cpu")
         cfg = tms.InnerConfig(method=method, pc=pc, restart=4)
         if pc == "bjacobi":
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+            with pytest.raises(ValueError, match="pc='mg'"):
                 tms.sm(op, b, inner=cfg)
         else:
             assert tms.sm(op, b, inner=cfg).converged

@@ -227,8 +227,14 @@ class TestConvert:
             8, 4, 6, 6.0, -1.0)
         top2 = convert.from_jax_operator(jpoisson.poisson2d(4, 5))
         assert (type(top2).__name__, top2.m, top2.n) == ("Stencil2D", 4, 5)
-        with pytest.raises(TypeError):   # the strip operators are not ported
-            convert.from_jax_operator(jpoisson.strip2d(4, 4))
+        jstrip = jpoisson.strip2d(4, 6)
+        strip = convert.from_jax_operator(jstrip, "cpu")
+        assert (type(strip).__name__, strip.rows, strip.n) == (
+            "StencilStrip2D", 2, 6)
+        x = np.random.default_rng(0).standard_normal(12)
+        np.testing.assert_allclose(strip.mv(torch.from_numpy(x)).numpy(),
+                                   np.asarray(jstrip.mv(jnp.asarray(x))),
+                                   rtol=1e-12)
 
     def test_arrays(self):
         a = np.random.default_rng(1).standard_normal((3, 4, 5)).astype(np.float32)
@@ -279,7 +285,13 @@ class TestBoundary:
             "as_routed_operator", "minres", "bicgstab", "default_device",
             # slice 4
             "residual_norm_sq", "iterative_refinement",
-            "device_iterative_refinement", "df_iterative_refinement"}
+            "device_iterative_refinement", "df_iterative_refinement",
+            # slice 8
+            "BlockOperator", "StackedELLOperator", "StackedDIAOperator",
+            "StackedBSROperator", "as_stacked_routed_operator",
+            "from_stacked_ell", "stacked_bsr_from_ell", "block_poisson2d_ell",
+            "block_split_ell", "StencilStrip2D", "StencilStrip3D", "strip2d",
+            "strip3d"}
 
     def test_chip_smoke_refuses_without_a_card(self, tmp_path):
         assert not torch.cuda.is_available()

@@ -148,8 +148,10 @@ class TestAsRoutedOperator:
                 tout = tops.as_routed_operator(tell, **kw)
             assert isinstance(tout, tops.BSR)
             _same_route(jout, tout, A)
+            # the same words but the AIJ's: the port's is a CSR on kernel H
             assert str(tw[0].message) == str(jw[0].message).replace(
-                "as_tpu_operator", "as_routed_operator")
+                "as_tpu_operator", "as_routed_operator").replace(
+                "the routed-gather AIJ", "the AIJ's CSR on kernel H")
         finally:
             jcal.reset_cache()
             tcal.reset_cache()
