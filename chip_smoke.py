@@ -4,7 +4,8 @@ north-star (as one program of CUDA graphs), the thesis's two-stage
 multisplitting solvers, the one-call solve API over general sparse
 matrices, and the stencil family's fused PCG direction, fused residual
 norms, coarse solve in one launch, 2D multigrid north-star and
-multigrid-preconditioned inner solves.
+multigrid-preconditioned inner solves, and the thesis's genuinely
+asynchronous execution (one thread, or one process over TCP, a block).
 
 Run from the root of a checkout:
 
@@ -122,18 +123,22 @@ from this checkout and nothing of JAX, and:
    SMSM_GLOBAL 2D 1024^2 with inner ``cg`` + ``pc='mg'``, both running
    kernel M at the strips' coarsest grids; all must converge to their
    rtol recomputed in f64, SM with ``pc='mg'`` in 51 sweeps;
-8. calibration phase: the per-stored-value times of kernel I by block
-   size, of kernel H and of ``ELL.mv`` relative to ``DIA.mv``, and the
-   largest n at which ``DenseOp.mv`` is no slower than kernel H: the
-   constants of ``core/calibration.py``, each the median of 3 medians
-   with their spread, printed as one JSON line and saved under
-   ``build/`` (the solves that follow route by the shipped table);
+8. calibration phase, through ``utils/calibrate.measure_calibration``:
+   the per-stored-value times of kernel I by block size, of kernel H and
+   of ``ELL.mv`` relative to ``DIA.mv``, and the largest n at which
+   ``DenseOp.mv`` is no slower than kernel H: the constants of
+   ``core/calibration.py``, each the median of 3 medians with their
+   spread, printed as one JSON line beside the shipped table and saved
+   under ``build/`` (the solves that follow route by the shipped table);
 9. API phase, in f32, on scipy matrices made from a seed: GMRES with
    Jacobi on a structureless symmetric diagonally dominant matrix of
    n = 2^22 (AIJ; one right-hand side, then a panel of 4), GMRES with
    block-Jacobi on a block-sparse SPD matrix of 4096 blocks of 64 (BSR),
    CG with Jacobi on the 1024^2 2D Poisson matrix (DIA), and LSQR on the
-   rectangular pattern (AIJ, forward and transpose).  The first solve of
+   rectangular pattern (AIJ, forward and transpose).  The block-sparse
+   matrix is packed once by ``native.bsr_pack`` (which ``prepare`` packs
+   with) and once by the plain ``_bsr_pack_plain``, each timed: the two
+   must agree in every bit.  The first solve of
    each is counted: every kernel on its route must have been launched,
    it must converge on the stated operator, in the iterations every
    earlier run took (AIJ 7, and 7 each with 4 right-hand sides; LSQR 8),
@@ -160,7 +165,19 @@ from this checkout and nothing of JAX, and:
    its rtol recomputed in f64 on the host against the matrix, and is timed
    (median of 3).  Then ``StencilStrip2D(2048, 4096).mv_full`` against
    the strip rows of the 4096^2 stack's ``full_mv``, and
-   ``StencilStrip3D(256, 512, 512).mv`` against kernel A's plain version.
+   ``StencilStrip3D(256, 512, 512).mv`` against kernel A's plain version;
+11. async phase, in f32 on 2D 1024^2 in 2 blocks at rtol 1e-3 with the
+   default inner GMRES(30), maxiter 20: ``host_async_solve`` AM and
+   AMAM_GLOBAL (s=4), one thread and one CUDA stream a block, each
+   converged and certified with the f64 residual under 1e-3, timed (AM
+   median of 3, AMAM_GLOBAL one run; the first counted: kernels E [mv], F,
+   G and, for AMAM_GLOBAL, E [spmm] must launch from the block threads),
+   with the busy share of a 10-sweep window under the profiler;
+   ``staged_multisplit_solve`` SMSM_GLOBAL bit-equal to ``smsm`` with its
+   four stage shares; and ``launch_net_async`` with 2 processes on the
+   card (AM under Alg-5.15 on the native and the Python router, then the
+   sync schedule), every rank certified and the merged residual under
+   1e-3.
 
 Any failure raises.  The line before the last is a JSON object of the
 kernels; the last line is ``{"ok": true, "device": {...}}``.
@@ -229,7 +246,7 @@ ENTRIES = [
 PHASES = ("kernels", "kernels2d", "fusedkernels", "coarse", "sparse",
           "northstar",
           "fused", "northstar2d", "cycle", "golden", "thesis", "inner",
-          "calibration", "api", "stacked")
+          "calibration", "api", "stacked", "async")
 # the card's published peaks: memory rate, and f32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = 67e12
@@ -308,8 +325,8 @@ def main() -> None:
     unknown = [p for p in only if p not in PHASES]
     if unknown:
         sys.exit(f"chip_smoke: unknown phases {unknown}; known: {PHASES}")
-    if {"calibration", "api"} & set(only):
-        only.append("sparse")      # they take its matrices and timings
+    if "api" in only:
+        only.append("sparse")      # it takes its matrices
     todo = [p for p in PHASES if not only or p in only]
 
     t_all = time.perf_counter()
@@ -342,11 +359,13 @@ def main() -> None:
         elif phase == "inner":
             inner_phase(torch, port, dev)
         elif phase == "calibration":
-            calibration_phase(torch, port, dev, cases["csr_ms_per_nnz"], card)
+            calibration_phase(torch, dev, card)
         elif phase == "api":
             launches.update(api_phase(torch, port, dev, cases, report))
         elif phase == "stacked":
             stacked_phase(torch, port, dev, card)
+        elif phase == "async":
+            async_phase(torch, port, dev, card)
         log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
     if only:
         log(f"partial run of {todo}: no result lines")
@@ -1907,15 +1926,6 @@ I_SHAPES = [(4096, 64, 8, None, None), (256, 128, 8, None, None),
             (40, 32, 3, 40 * 32 - 7, 37 * 32 - 11)]
 
 
-def structureless_coo(np, n: int, draws: int, seed: int):
-    """A random pattern with no band or block structure: ``draws * n``
-    (row, column, value) draws, duplicates and all."""
-    rng = np.random.default_rng(seed)
-    nnz = n * draws
-    return (rng.integers(0, n, nnz), rng.integers(0, n, nnz),
-            rng.standard_normal(nnz))
-
-
 def rectangular_csr(np, sp):
     """A 200,003 x 150,001 matrix with about 8 entries a row, every 7th
     row empty, one row of 50,000 entries, and a 4 in every column (in the
@@ -2009,13 +2019,15 @@ def kernel_phase_sparse(torch, dev):
     and the plain version of H adds with atomics.  f64: the same with
     1e-11 and 1e-12.  Returns the report (largest errors; the times of
     the ``kernels`` line come from the routed tensors of ``api_phase``),
-    and the rectangular matrix and kernel H's time per nonzero for the
-    later phases."""
+    and the rectangular matrix for the API phase."""
     import numpy as np
     import scipy.sparse as sp
 
     from medane_tchakorom_ufc_thesis_repository_tpu_torch.core.operators import AIJ
     from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import bsr, csr
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.utils.calibrate import (
+        structureless_coo,
+    )
 
     report = new_report("api")
     gen = torch.Generator(device=dev)
@@ -2028,7 +2040,7 @@ def kernel_phase_sparse(torch, dev):
 
     # --- kernel H
     t0 = time.perf_counter()
-    rows, cols, vals = structureless_coo(np, SQUARE_N, DRAWS, 7)
+    rows, cols, vals = structureless_coo(SQUARE_N, DRAWS, 7)
     square = AIJ.from_coo(rows, cols, vals, (SQUARE_N, SQUARE_N),
                           dtype=torch.float64, device=dev)
     rect_host = rectangular_csr(np, sp)
@@ -2091,12 +2103,9 @@ def kernel_phase_sparse(torch, dev):
                             f"spread {spread:.1%}), plain {plain_ms:.3f} ms, "
                             f"library (torch.sparse_csr_tensor @ x) {lib}, "
                             f"bound {least['bound_ms']:.3f} ms")
-                        if label == "square":
-                            square_ms = ms
                         del A_lib
                     del x
                 del dat
-    square_ms_per_nnz = square_ms / square.nnz
     del square, rect, hard, rows, cols, vals
     torch.cuda.empty_cache()
 
@@ -2147,105 +2156,34 @@ def kernel_phase_sparse(torch, dev):
             del val
         del idx
     torch.cuda.empty_cache()
-    return report, {"rect": rect_host, "csr_ms_per_nnz": square_ms_per_nnz}
+    return report, {"rect": rect_host}
 
 
 # ---------------------------------------------------------------------------
 # Calibration phase
 # ---------------------------------------------------------------------------
 
-def calibration_phase(torch, port, dev, csr_ms_per_nnz, card) -> None:
+def calibration_phase(torch, dev, card) -> None:
     """Measure the routing constants of ``core/calibration.py`` on this
-    card, in f32, per stored value and relative to ``DIA.mv`` on the
-    5-point matrix of a 4096^2 grid.  The shapes are long enough (0.5 ms
-    and more a launch, but for the dense crossover) that a median repeats
-    to a few percent; every time is the median of 3 medians of 20, printed
-    with their spread.  Prints the constants as one JSON line and saves
-    them with ``calibration.save`` under ``build/``, a file that
-    ``MEDANE_TORCH_CALIBRATION`` can name."""
-    import numpy as np
-
+    card through ``utils/calibrate.measure_calibration`` (f32, per stored
+    value and relative to ``DIA.mv`` on the 5-point matrix of a 4096^2
+    grid; every time the median of 3 medians of 20 CUDA-event timings,
+    with their spread).  Prints the constants as one JSON line beside the
+    shipped table and saves them with ``calibration.save`` under
+    ``build/``, a file that ``MEDANE_TORCH_CALIBRATION`` can name; the
+    solves that follow route by the shipped table."""
     from medane_tchakorom_ufc_thesis_repository_tpu_torch.core import (
         calibration,
-        poisson,
     )
-    from medane_tchakorom_ufc_thesis_repository_tpu_torch.core.operators import AIJ
-    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import bsr
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.utils import (
+        calibrate,
+    )
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(3)
-    rng = np.random.default_rng(4)
-    spreads = {}
-
-    dia = poisson.poisson2d_dia(4096, 4096, device=dev)
-    x = torch.randn(dia.shape[1], generator=gen, device=dev)
-    dia_ms, spreads["dia"] = repeat_ms(torch, lambda: dia.mv(x))
-    unit = dia_ms / dia.data.numel()
-    log(f"calibration: DIA.mv 4096^2, {dia.data.numel()} stored values: "
-        f"{dia_ms:.3f} ms (spread {spreads['dia']:.1%})")
-    del dia, x
-
-    penalty = {}
-    for bs in (8, 16, 32, 64, 128):
-        width = 8
-        nbr = (1 << 28) // (width * bs * bs)
-        # 8 distinct block columns a row, ascending from a random start
-        steps = rng.integers(1, nbr // width, size=(nbr, width))
-        cols = (np.cumsum(steps, axis=1) + np.arange(nbr)[:, None]) % nbr
-        idx = torch.from_numpy(np.sort(cols, axis=1).astype(np.int32)).to(dev)
-        val = torch.randn((nbr, width, bs, bs), generator=gen, device=dev)
-        x = torch.randn(nbr * bs, generator=gen, device=dev)
-        ms, spreads[f"bsr{bs}"] = repeat_ms(
-            torch, lambda: bsr.bsr_mv(idx, val, x, nbr * bs, nbr * bs))
-        penalty[bs] = ms / val.numel() / unit
-        log(f"calibration: bsr_mv bs={bs} nbr={nbr}: {ms:.3f} ms (spread "
-            f"{spreads[f'bsr{bs}']:.1%}), {penalty[bs]:.3f}x DIA per stored "
-            f"value")
-        del idx, val, x
-
-    # kernel H's time on the n = 2^22 pattern, from the kernel phase
-    aij_cost = csr_ms_per_nnz / unit
-    log(f"calibration: csr_mv n=2^22: {aij_cost:.3f}x DIA per nonzero")
-
-    n = 1 << 20
-    rows, cols, vals = structureless_coo(np, n, DRAWS, 8)
-    ell = poisson.coo_to_ell(*_coalesced(np, rows, cols, vals, n), (n, n),
-                             device=dev)
-    x = torch.randn(n, generator=gen, device=dev)
-    ell_ms, spreads["ell"] = repeat_ms(torch, lambda: ell.mv(x))
-    true_nnz = int(torch.count_nonzero(ell.values))
-    ell_cost = ell_ms / true_nnz / unit
-    log(f"calibration: ELL.mv n=2^20 width {ell.indices.shape[1]}, "
-        f"{true_nnz} nonzeros: {ell_ms:.3f} ms (spread "
-        f"{spreads['ell']:.1%}), {ell_cost:.2f}x DIA per nonzero")
-    del ell, x
-
-    max_dense_n, still = 0, True
-    for e in range(8, 15):
-        n = 1 << e
-        rows, cols, vals = structureless_coo(np, n, DRAWS, 9 + e)
-        op = AIJ.from_coo(rows, cols, vals, (n, n), with_rmv=False,
-                          device=dev)
-        dense = port.DenseOp(a=op.to_dense())
-        x = torch.randn(n, generator=gen, device=dev)
-        d_ms, d_spread = repeat_ms(torch, lambda: dense.mv(x))
-        c_ms, c_spread = repeat_ms(torch, lambda: op.mv(x))
-        log(f"calibration: n={n}: DenseOp.mv {d_ms:.4f} ms (spread "
-            f"{d_spread:.1%}), csr_mv {c_ms:.4f} ms (spread {c_spread:.1%})")
-        still = still and d_ms <= c_ms
-        if still:
-            max_dense_n = n
-        del op, dense, x
-    torch.cuda.empty_cache()
-    cal = {"card": card, "device_kind": torch.cuda.get_device_name(0),
-           "dia_ms": dia_ms,
-           "bsr_bs_penalty": {str(k): round(v, 3) for k, v in penalty.items()},
-           "aij_relative_cost": round(aij_cost, 3),
-           "ell_relative_cost": round(ell_cost, 3),
-           "max_dense_n": max_dense_n,
-           "spread": {k: round(v, 4) for k, v in spreads.items()}}
+    cal = calibrate.measure_calibration(device=dev, log=log)
+    cal["card"] = card
     print("calibration " + json.dumps(cal), flush=True)
     used = calibration.load()
+    log(f"calibration: shipped table {calibration.SHIPPED}")
     path = calibration.save(cal, path=str(
         ROOT / "build" / "torch_kernels" / "calibration.json"))
     log(f"calibration: saved to {path}; the solves below route by "
@@ -2253,19 +2191,35 @@ def calibration_phase(torch, port, dev, csr_ms_per_nnz, card) -> None:
         f"{ {k: used[k] for k in cal if k in used} }")
 
 
-def _coalesced(np, rows, cols, vals, n):
-    """COO triplets with duplicates summed."""
-    import scipy.sparse as sp
-
-    a = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
-    a.sum_duplicates()
-    c = a.tocoo()
-    return c.row, c.col, c.data
-
-
 # ---------------------------------------------------------------------------
 # API phase
 # ---------------------------------------------------------------------------
+
+def hold_native_pack(np, A, bs: int) -> None:
+    """The BSR pack of the API's block-sparse matrix at block size ``bs``,
+    once by the native counting-sort pack that ``prepare`` packs with
+    (``native.bsr_pack``) and once by the plain scipy/numpy one
+    (``core/operators._bsr_pack_plain``), each timed on the host: their
+    indices and values must agree in every bit."""
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch import native
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.core.operators import (
+        _bsr_pack_plain,
+    )
+
+    c = A.tocoo()
+    t0 = time.perf_counter()
+    i_n, v_n = native.bsr_pack(c.row, c.col, c.data, A.shape, bs)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    i_p, v_p = _bsr_pack_plain(c.row, c.col, c.data, A.shape, bs)
+    plain_s = time.perf_counter() - t0
+    same = np.array_equal(i_n, i_p) and np.array_equal(v_n, v_p)
+    log(f"BSR pack of {A.nnz} nonzeros at bs {bs}: native.bsr_pack "
+        f"{native_s:.2f} s, _bsr_pack_plain {plain_s:.2f} s on the host, "
+        f"bit-equal {same}")
+    if not same:
+        raise AssertionError("native.bsr_pack and _bsr_pack_plain differ")
+
 
 def block_sparse_spd(np, sp, nb: int, bs: int, seed: int = 5):
     """A block-sparse SPD matrix: every diagonal block ``Q diag(1..100)
@@ -2311,6 +2265,9 @@ def api_phase(torch, port, dev, cases, report) -> dict:
         poisson,
     )
     from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import bsr, build, csr
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.utils.calibrate import (
+        structureless_coo,
+    )
 
     total = {"csr_mv": 0, "bsr_mv": 0}
 
@@ -2367,7 +2324,7 @@ def api_phase(torch, port, dev, cases, report) -> dict:
     # 1. AIJ: structureless symmetric, strictly diagonally dominant
     t0 = time.perf_counter()
     n = SQUARE_N
-    r, c, v = structureless_coo(np, n, DRAWS, 1)
+    r, c, v = structureless_coo(n, DRAWS, 1)
     B = sp.coo_matrix((v, (r, c)), shape=(n, n)).tocsr()
     A = ((B + B.T) * 0.5).tocsr()
     A = (A + sp.eye(n, format="csr")
@@ -2445,6 +2402,7 @@ def api_phase(torch, port, dev, cases, report) -> dict:
     if bs != cheapest:
         raise AssertionError(f"routed to block size {bs}, the table's "
                              f"cheapest is {cheapest}")
+    hold_native_pack(np, A, bs)
     xk = torch.randn(n, device=dev)
     # torch's BSR tensor holds the blocks untransposed
     A_lib = torch.sparse_bsr_tensor(
@@ -2522,7 +2480,11 @@ STACKED_KERNELS = ("csr_mv", "bsr_mv", "mdot", "maxpy")
 def structureless_spd(np, sp, n: int, seed: int = 1):
     """The API phase's structureless matrix: ``DRAWS`` random entries a
     row, symmetrized, made strictly diagonally dominant."""
-    r, c, v = structureless_coo(np, n, DRAWS, seed)
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.utils.calibrate import (
+        structureless_coo,
+    )
+
+    r, c, v = structureless_coo(n, DRAWS, seed)
     B = sp.coo_matrix((v, (r, c)), shape=(n, n)).tocsr()
     A = ((B + B.T) * 0.5).tocsr()
     return (A + sp.eye(n, format="csr")
@@ -2805,15 +2767,21 @@ def replay_share(torch, label: str, program, res, solve_ms: float) -> None:
         + ")")
 
 
-def busy_share(torch, label: str, run, solve_ms: float) -> None:
+def busy_share(torch, label: str, run, solve_ms: float,
+               host_ops: bool = True) -> None:
     """The share of a warm solve's wall time (``solve_ms``, taken without
     the profiler) in which the card ran a kernel: the device time of one
-    more solve under ``torch.profiler``, summed by kernel."""
+    more solve under ``torch.profiler``, summed by kernel.  ``host_ops``
+    False records the card's activity alone (a solve of a million host
+    operations costs minutes to record and sum with them)."""
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CUDA]
+    if host_ops:
+        acts.append(ProfilerActivity.CPU)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
         run()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -2829,6 +2797,135 @@ def busy_share(torch, label: str, run, solve_ms: float) -> None:
         f"solve = {device_ms / solve_ms:.1%} "
         f"(the profiled solve took {wall_ms:.1f} ms); top: "
         + "; ".join(f"{k[:48]} {ms:.1f} ms" for k, ms in rows[:6]))
+
+
+
+# ---------------------------------------------------------------------------
+# Async phase
+# ---------------------------------------------------------------------------
+
+def async_phase(torch, port, dev, card) -> None:
+    """The genuinely asynchronous execution, all in f32 on 2D 1024^2 in 2
+    blocks at rtol 1e-3 with the default inner GMRES(30), maxiter 20 (the
+    reference's default experiment).  ``host_async_solve`` AM and
+    AMAM_GLOBAL (s=4), one thread and one CUDA stream a block: each run
+    must converge and be certified with the f64 relative residual under
+    1e-3; AM is timed over three runs, AMAM_GLOBAL (2-3x AM's sweeps) over
+    one; the first run of each is counted (kernels E [mv], F and G, and E
+    [spmm] for AMAM_GLOBAL, must launch).  The busy share is read on a
+    window of 10 sweeps a block, timed alone and then under the profiler
+    (a whole run records ~10^5 kernels and takes minutes to sum).
+    ``staged_multisplit_solve`` SMSM_GLOBAL must equal ``smsm`` in sweeps,
+    x and history to the bit; its four stage shares are printed.
+    ``launch_net_async`` with 2 processes on the card (each its own CUDA
+    context): AM under the Alg-5.15 protocol on the native and on the
+    Python router, then the bulk-synchronous schedule (SM over TCP);
+    every rank must be certified and the merged x's f64 relative residual
+    under 1e-3.  (The sync schedule with the global minimization is not
+    run: it certifies in neither package at these sizes, PERF.md §6.)"""
+    import numpy as np
+
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import build
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.utils.profiling import (
+        PhaseTimer,
+    )
+
+    rtol = 1e-3
+    op = port.block_poisson2d(1024, 1024)
+    b = port.rhs_ones(op, torch.float32, dev)
+    need = ("stencil2d_apply[mv]", "mdot", "maxpy")
+    for label, kw, kernels, runs in (
+            ("host_async AM", {}, need, 3),
+            ("host_async AMAM_GLOBAL s=4", {"minimization": "global", "s": 4},
+             need + ("stencil2d_apply[spmm]",), 1)):
+        def run(maxiter=4000):
+            return port.host_async_solve(op, b, rtol=rtol, maxiter=maxiter,
+                                         **kw)
+
+        times = []
+        for i in range(runs):
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i == 0:
+                counts = build.launch_counts()
+            rel = residual_f64(torch, op, res.x, b)
+            log(f"{label} run {i}: converged {res.converged}, certified "
+                f"{res.certified}, tail rounds {res.tail_rounds}, sweeps per "
+                f"block {res.sweeps_per_block} (the emulated am, thesis "
+                f"phase: 280), f32 rel {res.rnorm / res.rnorm0:.3e}, f64 rel "
+                f"{rel:.3e}, {times[-1]:.2f} s (threads {res.elapsed_s:.2f} s)")
+            if not (res.converged and res.certified) or not rel <= rtol:
+                raise AssertionError(f"{label}: converged {res.converged}, "
+                                     f"certified {res.certified}, rel {rel}")
+        missing = [m for m in kernels if counts.get(m, 0) == 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels never launched: {missing}")
+        log(f"{label} [{card}]: wall {statistics.median(times):.2f} s, median "
+            f"of {runs} {[round(t, 2) for t in times]} s; launches of the "
+            f"first run {counts}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(maxiter=10)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+        busy_share(torch, f"{label}, 10 sweeps a block [{card}]",
+                   lambda: run(maxiter=10), window_ms, host_ops=False)
+
+    pt = PhaseTimer()
+    t0 = time.perf_counter()
+    st = port.staged_multisplit_solve(op, b, minimization="global", s=4,
+                                      rtol=rtol, maxiter=2000, timer=pt)
+    staged_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = port.smsm(op, b, scope="global", s=4, rtol=rtol, maxiter=2000,
+                    record_history=True)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    same = (st.sweeps == ref.sweeps and torch.equal(st.x, ref.x)
+            and torch.equal(st.history, ref.history[:st.cycles]))
+    total = sum(t for _, t, _ in pt.items())
+    log(f"staged SMSM_GLOBAL 1024^2 [{card}]: {st.sweeps} sweeps ({ref.sweeps}"
+        f" unstaged), x and history bit-equal {same}; {staged_s:.2f} s "
+        f"staged, {ref_s:.2f} s unstaged; stages: "
+        + "; ".join(f"{name} {t:.3f} s in {c} calls ({t / total:.1%})"
+                    for name, t, c in pt.items()))
+    if not same:
+        raise AssertionError("staged_multisplit_solve differs from smsm")
+
+    for label, kw in (
+            ("net_async AM protocol, native router", {"transport": "native"}),
+            ("net_async AM protocol, Python router", {"transport": "python"}),
+            ("net_async sync (SM over TCP)", {"schedule": "sync"})):
+        t0 = time.perf_counter()
+        ranks = port.launch_net_async(nblocks=2, m=1024, n=1024, rtol=rtol,
+                                      maxiter=4000, dtype="float32",
+                                      timeout_s=300, device="cuda", **kw)
+        wall = time.perf_counter() - t0
+        ranks = sorted(ranks, key=lambda r: r["rank"])
+        blobs = [json.dumps(r) for r in ranks]
+        t0 = time.perf_counter()
+        for blob in blobs:
+            json.loads(blob)
+        parse_s = time.perf_counter() - t0
+        x = torch.from_numpy(np.stack([np.asarray(r["x_block"], np.float32)
+                                       for r in ranks])).to(dev)
+        rel = residual_f64(torch, op, x, b)
+        solve_s = max(r["elapsed_s"] for r in ranks)
+        log(f"{label} [{card}]: " + "; ".join(
+            f"rank {r['rank']} {r['sweeps']} sweeps, certified "
+            f"{r['certified']}, tail rounds {r['tail_rounds']}, phase tag "
+            f"{r['phase_tag']}, elapsed_s {r['elapsed_s']}" for r in ranks)
+            + f"; f64 rel {rel:.3e}; launch {wall:.2f} s, of which start-up, "
+            f"transport and result lines {wall - solve_s:.2f} s (parsing the "
+            f"{sum(len(s) for s in blobs) / 1e6:.1f} MB of JSON again takes "
+            f"{parse_s:.2f} s)")
+        if not all(r["certified"] for r in ranks) or not rel <= rtol:
+            raise AssertionError(f"{label}: certified "
+                                 f"{[r['certified'] for r in ranks]}, rel {rel}")
 
 
 if __name__ == "__main__":

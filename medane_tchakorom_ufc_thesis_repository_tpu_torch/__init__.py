@@ -39,6 +39,18 @@ I) or left on the stacked ELL (kernel H on its CSR); the inner solves take
 operators ``StencilStrip2D``/``StencilStrip3D`` (``strip2d``/``strip3d``)
 come with it.
 
+Slice 9, the native host library and the genuinely asynchronous
+execution: ``native`` (the g++-built assembly and counting-sort BSR pack
+that ``core.operators`` packs with, and the epoll TCP router),
+``models.host_async.host_async_solve`` (one thread per block, Alg-5.15
+termination over drain-to-newest mailboxes, a lockstep certification
+tail), ``models.net_async`` (one OS process per block over TCP,
+``launch_net_async``; termination by Alg-5.15, the SLCV protocol or the
+traversal guard; async or sync schedule; local, semi-local or global
+minimization), ``models.staged.staged_multisplit_solve`` (the stage
+timers) and ``utils.calibrate`` (the routing constants measured on the
+card).
+
 On the card every stencil apply, GMRES's Gram-Schmidt pair, and the CSR
 and block-ELL sparse products run hand-written CUDA kernels (``csrc/``,
 ``ops/``); on the CPU the kernels' plain PyTorch versions run.  Entry
@@ -93,6 +105,9 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.blockops import (
     rhs_ones,
     stacked_bsr_from_ell,
 )
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.host_async import (
+    host_async_solve,
+)
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.multisplitting import (
     InnerConfig,
     MultisplitResult,
@@ -102,6 +117,13 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.multisplitting impo
     multisplit_solve,
     sm,
     smsm,
+)
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.net_async import (
+    launch_net_async,
+    net_async_block_solve,
+)
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.staged import (
+    staged_multisplit_solve,
 )
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops.fused import (
     residual_norm_sq,
@@ -140,4 +162,5 @@ __all__ = ["poisson2d", "poisson3d", "Stencil2D", "Stencil3D", "cg", "gmres",
            "StackedBSROperator", "as_stacked_routed_operator",
            "from_stacked_ell", "stacked_bsr_from_ell", "block_poisson2d_ell",
            "block_split_ell", "StencilStrip2D", "StencilStrip3D", "strip2d",
-           "strip3d"]
+           "strip3d", "host_async_solve", "staged_multisplit_solve",
+           "launch_net_async", "net_async_block_solve"]

@@ -582,7 +582,19 @@ def _bsr_pack_np(rows, cols, vals, shape, bs: int):
     """One-sided block-ELL pack: ``(indices (nbr, width) int32, values
     (nbr, width, bs, bs) f64)``, blocks in block-column order within a
     block row, each stored transposed (``blocks[b, j, i] = A_blk[i, j]``),
-    duplicates summed in input order."""
+    duplicates summed in input order.  The native counting-sort pack
+    (``native.bsr_pack``, as the JAX package packs); ``_bsr_pack_plain``
+    computes the same bits with scipy and numpy."""
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch import native
+
+    return native.bsr_pack(rows, cols, vals, shape, bs)
+
+
+def _bsr_pack_plain(rows, cols, vals, shape, bs: int):
+    """``_bsr_pack_np`` in scipy and numpy: the distinct blocks from a
+    sorted CSR of the block pattern, the values summed by
+    ``np.bincount`` in input order (the tests' oracle of the native
+    pack)."""
     nrows, ncols = int(shape[0]), int(shape[1])
     nbr, ncb = -(-nrows // bs), -(-ncols // bs)
     br, bc = rows // bs, cols // bs

@@ -1,5 +1,7 @@
 """Algorithm drivers (port of the JAX package's ``models``): the stacked
-block operators and the two-stage multisplitting solvers."""
+block operators, the two-stage multisplitting solvers, their host-stepped
+twin with stage timers, and the genuinely asynchronous execution (one
+thread per block, or one process per block over TCP)."""
 
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.blockops import (  # noqa: F401
     BlockOperator,
@@ -20,4 +22,14 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.multisplitting impo
     multisplit_solve,
     sm,
     smsm,
+)
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.host_async import (  # noqa: F401
+    host_async_solve,
+)
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.net_async import (  # noqa: F401
+    launch_net_async,
+    net_async_block_solve,
+)
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.staged import (  # noqa: F401
+    staged_multisplit_solve,
 )

@@ -405,6 +405,92 @@ def _solve_ls(R: torch.Tensor, rhs: torch.Tensor, cfg: OuterConfig):
     return res.x, res.syncs
 
 
+def _publish(stal, x, x_vis, sweep_count):
+    """Each block's visible iterate after sweep ``sweep_count``: its new
+    one on its publish sweeps (every ``stal[i]``-th), else the one it
+    published last."""
+    done = [sweep_count % v == 0 for v in stal]
+    if all(done):
+        return x
+    if not any(done):
+        return x_vis
+    return torch.stack([x[i] if d else x_vis[i] for i, d in enumerate(done)])
+
+
+def _minimize(op, b, S, rhs, minimization, outer, outer_pb):
+    """One outer minimization, basis ``S (s, nb, bs)`` -> ``(x_new,
+    outer_rnorm, host reads)``.  'local' takes ``R = A_ii S_i`` against
+    the frozen ``rhs``, 'semi_local'/'global' the full row strips ``A_i
+    S`` against ``b`` (reference ``...-local.c:256``,
+    ``...-semi-local.c:319``, ``...-global.c:325``)."""
+    s, nb, bs = S.shape
+    if minimization == "local":
+        Rcols, target = op.diag_mv(S), rhs
+    else:
+        Rcols, target = op.full_mv(S), b
+    if minimization == "global":
+        n = nb * bs
+        R = Rcols.reshape(s, n)
+        alpha, reads = _solve_ls(R.transpose(0, 1), target.reshape(-1), outer)
+        alpha = alpha[None].contiguous()
+        out_r = maxpy(R[None], -alpha, target.reshape(1, n), s)
+        x_new = maxpy(S.reshape(1, s, n), alpha,
+                      torch.zeros((1, n), dtype=b.dtype, device=b.device), s)
+        x_new = x_new.reshape(nb, bs)
+    else:
+        Rb = Rcols.permute(1, 2, 0)                 # (nb, bs, s)
+        if outer_pb is not None:
+            out = [_solve_ls(Rb[i], target[i], outer_pb[i])
+                   for i in range(nb)]
+            alpha = torch.stack([a for a, _ in out])
+            reads = sum(k for _, k in out)
+        else:
+            alpha, reads = _solve_ls(Rb, target, outer)
+        if outer.alpha_average:
+            alpha = alpha.mean(dim=0, keepdim=True).expand(nb, s)
+        alpha = alpha.contiguous()
+        out_r = maxpy(Rcols.permute(1, 0, 2), -alpha, target, s)
+        x_new = maxpy(S.permute(1, 0, 2), alpha, torch.zeros_like(b), s)
+    return x_new, torch.sqrt(torch.sum(out_r * out_r)), reads
+
+
+def _local_rnorms(op, rhs, x):
+    """``(per-block ||rhs_i - A_ii x_i||, their global norm)``."""
+    local_r = rhs - op.diag_mv(x)
+    local_sq = torch.sum(local_r * local_r, dim=1)
+    return torch.sqrt(local_sq), torch.sqrt(torch.sum(local_sq))
+
+
+def _certification_tail(op, b, x, inner_solve, tol_local, converged,
+                        max_sweeps: int = 64):
+    """Lockstep certification of an async run: its cycles measure
+    residuals against the staleness view; sync sweeps on the true
+    coupling until every block's true residual is under ``tol_local``
+    (at most ``max_sweeps``).  Only a protocol-converged run is
+    certified.  Returns ``(x, tail sweeps, certified, rnorm,
+    local_rnorms, host reads)``."""
+    def true_resid(x_c):
+        local_r = b - op.coupling_mv(x_c) - op.diag_mv(x_c)
+        lsq = torch.sum(local_r * local_r, dim=1)
+        return (torch.all(torch.sqrt(lsq) <= tol_local), torch.sqrt(lsq),
+                torch.sqrt(torch.sum(lsq)))
+
+    ok_t, lr_t, rn_t = true_resid(x)
+    tail_sweeps = reads = 0
+    ok = True
+    if converged:
+        reads += 1
+        ok = bool(ok_t)
+        while not ok and tail_sweeps < max_sweeps:
+            res = inner_solve(b - op.coupling_mv(x), x)
+            reads += res.syncs + 1
+            x = res.x
+            ok_t, lr_t, rn_t = true_resid(x)
+            tail_sweeps += 1
+            ok = bool(ok_t)
+    return x, tail_sweeps, converged and ok, rn_t, lr_t, reads
+
+
 # ---------------------------------------------------------------------------
 # Main driver
 # ---------------------------------------------------------------------------
@@ -491,55 +577,6 @@ def multisplit_solve(
     spc = s * max(stal) if collect_publish else s   # sweeps per cycle
     syncs = 0
 
-    def publish(x, x_vis, sweep_count):
-        """Each block's visible iterate: its new one on its publish
-        sweeps, else the one it published last."""
-        done = [sweep_count % v == 0 for v in stal]
-        if all(done):
-            return x
-        if not any(done):
-            return x_vis
-        return torch.stack([x[i] if d else x_vis[i]
-                            for i, d in enumerate(done)])
-
-    def minimize(S, x_vis, rhs, sweeps):
-        """One outer minimization: basis ``S (s, nb, bs)`` -> combined x.
-        'local' takes ``R = A_ii S_i`` against the frozen ``rhs``,
-        'semi_local'/'global' the full row strips ``A_i S`` against ``b``
-        (reference ``...-local.c:256``, ``...-semi-local.c:319``,
-        ``...-global.c:325``)."""
-        if minimization == "local":
-            Rcols, target = op.diag_mv(S), rhs
-        else:
-            Rcols, target = op.full_mv(S), b
-        if minimization == "global":
-            n = nb * bs
-            R = Rcols.reshape(s, n)
-            alpha, reads = _solve_ls(R.transpose(0, 1), target.reshape(-1),
-                                     outer)
-            alpha = alpha[None].contiguous()
-            out_r = maxpy(R[None], -alpha, target.reshape(1, n), s)
-            x_new = maxpy(S.reshape(1, s, n), alpha,
-                          torch.zeros((1, n), dtype=dtype, device=dev), s)
-            x_new = x_new.reshape(nb, bs)
-        else:
-            Rb = Rcols.permute(1, 2, 0)                 # (nb, bs, s)
-            if outer_pb is not None:
-                out = [_solve_ls(Rb[i], target[i], outer_pb[i])
-                       for i in range(nb)]
-                alpha = torch.stack([a for a, _ in out])
-                reads = sum(k for _, k in out)
-            else:
-                alpha, reads = _solve_ls(Rb, target, outer)
-            if outer.alpha_average:
-                alpha = alpha.mean(dim=0, keepdim=True).expand(nb, s)
-            alpha = alpha.contiguous()
-            out_r = maxpy(Rcols.permute(1, 0, 2), -alpha, target, s)
-            x_new = maxpy(S.permute(1, 0, 2), alpha, torch.zeros_like(b), s)
-        outer_rnorm = torch.sqrt(torch.sum(out_r * out_r))
-        x_vis = publish(x_new, x_vis, sweeps)
-        return x_new, x_vis, b - op.coupling_mv(x_vis), outer_rnorm, reads
-
     x, x_vis = x0, x0
     rhs = b - op.coupling_mv(x_vis)
     sweeps = cycles = 0
@@ -566,7 +603,7 @@ def multisplit_solve(
             sweeps += 1
             published = [sweeps % v == 0 for v in stal]
             pub = [p or q for p, q in zip(pub, published)]
-            x_vis = publish(x, x_vis, sweeps)
+            x_vis = _publish(stal, x, x_vis, sweeps)
             rhs = b - op.coupling_mv(x_vis)
             if minimization is None:
                 continue
@@ -580,16 +617,15 @@ def multisplit_solve(
             else:
                 S[i] = x
         if minimization is not None:
-            x, x_vis, rhs, outer_rnorm, reads = minimize(S, x_vis, rhs,
-                                                         sweeps)
+            x, outer_rnorm, reads = _minimize(op, b, S, rhs, minimization,
+                                              outer, outer_pb)
+            x_vis = _publish(stal, x, x_vis, sweeps)
+            rhs = b - op.coupling_mv(x_vis)
             syncs += reads
 
         # local residual rows r_i = rhs - A_ii x_i: with a sync exchange
         # the true global residual rows (the reference's MatResidual test)
-        local_r = rhs - op.diag_mv(x)
-        local_sq = torch.sum(local_r * local_r, dim=1)
-        local_rnorms = torch.sqrt(local_sq)
-        rnorm = torch.sqrt(torch.sum(local_sq))
+        local_rnorms, rnorm = _local_rnorms(op, rhs, x)
         if record_history:
             hist[cycles] = rnorm
         cycles += 1
@@ -613,30 +649,11 @@ def multisplit_solve(
 
     certified = tail_sweeps = None
     if is_async:
-        # lockstep certification: async cycles measure residuals against
-        # the staleness view x_vis; sync sweeps on the true coupling until
-        # every block's true residual is under its threshold (at most 64)
-        def true_resid(x_c):
-            local_r = b - op.coupling_mv(x_c) - op.diag_mv(x_c)
-            lsq = torch.sum(local_r * local_r, dim=1)
-            return (torch.all(torch.sqrt(lsq) <= tol_local), torch.sqrt(lsq),
-                    torch.sqrt(torch.sum(lsq)))
-
-        ok_t, lr_t, rn_t = true_resid(x)
-        tail_sweeps = 0
-        ok = True
-        if converged:   # only protocol-converged runs are certified
-            syncs += 1
-            ok = bool(ok_t)
-            while not ok and tail_sweeps < 64:
-                res = inner_solve(b - op.coupling_mv(x), x)
-                syncs += res.syncs + 1
-                x = res.x
-                ok_t, lr_t, rn_t = true_resid(x)
-                tail_sweeps += 1
-                ok = bool(ok_t)
+        x, tail_sweeps, certified, rn_t, lr_t, reads = _certification_tail(
+            op, b, x, inner_solve, tol_local, converged)
+        syncs += reads
+        if converged:
             rnorm, local_rnorms = rn_t, lr_t
-        certified = converged and ok
         sweeps += tail_sweeps
         converged = certified
 

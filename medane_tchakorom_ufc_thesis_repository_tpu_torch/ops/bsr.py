@@ -93,5 +93,5 @@ def bsr_mv(indices: torch.Tensor, values: torch.Tensor, x: torch.Tensor,
                     values.data_ptr(), xc.data_ptr(), y.data_ptr(), nbr,
                     width, values.shape[-1], n_out, n_in, k, build.stream(x))
     build.check(lib, rc, "bsr_mv")
-    build.launches["bsr_mv"] += 1
+    build.count("bsr_mv")
     return y

@@ -11,7 +11,10 @@ into its own shared library with a plain C interface, loaded with
 package (the checkout's root when run from a checkout); each file name
 carries a hash of its source and flags, so an edited source is rebuilt
 and a stale library is never loaded.  A build writes to a temporary name
-and renames it, so concurrent processes cannot load a half-written file.
+(the process's and the thread's id) and renames it, so concurrent
+processes and threads cannot load a half-written file; ``load`` builds
+each library once per process under a lock, and ``count`` adds a launch
+under a lock, so block threads (``models.host_async``) launch safely.
 """
 
 from __future__ import annotations
@@ -19,12 +22,12 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import ctypes
-import functools
 import hashlib
 import logging
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -139,7 +142,8 @@ def _compile(name: str, out: Path) -> None:
     logger.info("building %s with %s (torch %s, CUDA %s)", out.name,
                 version.splitlines()[-1], torch.__version__, torch.version.cuda)
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    tmp = out.with_name(
+        f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc, *NVCC_FLAGS, *EXTRA_FLAGS[name], "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -151,18 +155,28 @@ def _compile(name: str, out: Path) -> None:
     os.replace(tmp, out)
 
 
-@functools.cache
+_libs: dict = {}
+_load_lock = threading.Lock()
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu``, built on first use."""
-    path = library_path(name)
-    if not path.exists():
-        _compile(name, path)
-    lib = ctypes.CDLL(str(path))
-    for fn, (argtypes, restype) in SIGNATURES[name].items():
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = restype
-    return lib
+    """The library of ``csrc/<name>.cu``, built on first use (once per
+    process, whichever thread asks first)."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _load_lock:
+        if name not in _libs:
+            path = library_path(name)
+            if not path.exists():
+                _compile(name, path)
+            lib = ctypes.CDLL(str(path))
+            for fn, (argtypes, restype) in SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = restype
+            _libs[name] = lib
+        return _libs[name]
 
 
 def load_all() -> None:
@@ -196,17 +210,28 @@ def stream(x: torch.Tensor) -> int:
 
 
 # Launches of every kernel wrapper of the port, by wrapper (and kind):
-# each adds one where it launches its kernel; plain calls count nothing.
+# each adds one with ``count`` where it launches its kernel; plain calls
+# count nothing.  ``_count_lock`` guards every change.
 launches: collections.Counter = collections.Counter()
+_count_lock = threading.Lock()
+
+
+def count(name: str) -> None:
+    """Add one launch of ``name`` (thread-safe: ``+=`` on a Counter is a
+    read-modify-write that loses counts between threads)."""
+    with _count_lock:
+        launches[name] += 1
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by wrapper (and kind)."""
-    return dict(launches)
+    with _count_lock:
+        return dict(launches)
 
 
 def reset_launch_counts() -> None:
-    launches.clear()
+    with _count_lock:
+        launches.clear()
 
 
 class CountedGraph:
@@ -225,18 +250,21 @@ class CountedGraph:
 
     def capture(self, fn):
         """Capture ``fn()`` and return its result."""
-        before = collections.Counter(launches)
+        with _count_lock:
+            before = collections.Counter(launches)
         with self.context():
             out = fn()
-        self.launches = launches - before
-        launches.subtract(self.launches)
-        for name in [n for n, c in launches.items() if c == 0]:
-            del launches[name]
+        with _count_lock:
+            self.launches = launches - before
+            launches.subtract(self.launches)
+            for name in [n for n, c in launches.items() if c == 0]:
+                del launches[name]
         return out
 
     def replay(self) -> None:
         self.graph.replay()
-        launches.update(self.launches)
+        with _count_lock:
+            launches.update(self.launches)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -155,5 +155,5 @@ def chebyshev_coarse(b: torch.Tensor, *, dims: Sequence[int], diag: float,
         _DTYPE_CODE[b.dtype], b.data_ptr(), x.data_ptr(), batch, *dims, diag,
         off, _coef_array(coefs, b.dtype), len(coefs[1]), build.stream(b))
     build.check(lib, rc, f"{name}_chebyshev")
-    build.launches[f"{name}_chebyshev"] += 1
+    build.count(f"{name}_chebyshev")
     return x

@@ -111,7 +111,7 @@ def mdot(V: torch.Tensor, w: torch.Tensor, k_active: int) -> torch.Tensor:
                   w.data_ptr(), partials.data_ptr(), h.data_ptr(), batch,
                   V.stride(0), V.stride(1), K, N, k_active, build.stream(V))
     build.check(lib, rc, "mdot")
-    build.launches["mdot"] += 1
+    build.count("mdot")
     return h
 
 
@@ -149,7 +149,7 @@ def maxpy(V: torch.Tensor, alphas: torch.Tensor, y0: torch.Tensor,
                    alphas.data_ptr(), y0.data_ptr(), y.data_ptr(), batch,
                    V.stride(0), V.stride(1), K, N, k_active, build.stream(V))
     build.check(lib, rc, "maxpy")
-    build.launches["maxpy"] += 1
+    build.count("maxpy")
     return y
 
 
@@ -212,7 +212,7 @@ def stencil3d_mv_norm(x: torch.Tensor, b: torch.Tensor, *, nx: int, ny: int,
                              out.data_ptr(), nx, ny, nz, diag, off, 0.0,
                              build.stream(x))
     build.check(lib, rc, "stencil3d_mv_norm")
-    build.launches["stencil3d_mv_norm"] += 1
+    build.count("stencil3d_mv_norm")
     return y, out
 
 
@@ -247,7 +247,7 @@ def stencil2d_mv_norm(x: torch.Tensor, b: torch.Tensor, *, m: int, n: int,
                                out.data_ptr(), m, n, diag, off,
                                build.stream(x))
     build.check(lib, rc, "stencil2d_mv_norm")
-    build.launches["stencil2d_mv_norm"] += 1
+    build.count("stencil2d_mv_norm")
     return y, out
 
 

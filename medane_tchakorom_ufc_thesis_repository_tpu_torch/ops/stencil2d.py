@@ -67,5 +67,5 @@ def stencil2d_apply(x: torch.Tensor, *, diag: float, off: float,
                              batch, m, n, diag, off, build.stream(x))
     kind = "spmm" if panel else "mv"
     build.check(lib, rc, f"stencil2d_apply[{kind}]")
-    build.launches[f"stencil2d_apply[{kind}]"] += 1
+    build.count(f"stencil2d_apply[{kind}]")
     return y

@@ -205,7 +205,7 @@ def stencil3d_apply(x: torch.Tensor, *extras: torch.Tensor, kind: str,
         None if dot is None else dot.data_ptr(), nx, ny, nz, diag, off,
         0.0 if omega is None else omega, build.stream(x))
     build.check(lib, rc, f"stencil3d_apply[{kind}]")
-    build.launches[f"stencil3d_apply[{kind}]"] += 1
+    build.count(f"stencil3d_apply[{kind}]")
     return (y, dot.to(torch.float32)) if dot is not None else y
 
 
@@ -223,7 +223,7 @@ def _jacobi_dot_walk(lib, x, b, y, diag, off, omega) -> torch.Tensor:
         y.data_ptr(), partials.data_ptr(), dot.data_ptr(), nx, ny, nz, slab,
         diag, off, omega, build.stream(x))
     build.check(lib, rc, "stencil3d_apply[jacobi_dot]")
-    build.launches["stencil3d_apply[jacobi_dot]"] += 1
+    build.count("stencil3d_apply[jacobi_dot]")
     return dot
 
 
@@ -261,7 +261,7 @@ def stencil3d_mv_cast(x: torch.Tensor, *, diag: float, off: float,
         x.data_ptr(), None, y.data_ptr(), c.data_ptr(), None, None, nx, ny, nz,
         diag, off, 0.0, build.stream(x))
     build.check(lib, rc, "stencil3d_mv_cast")
-    build.launches["stencil3d_mv_cast"] += 1
+    build.count("stencil3d_mv_cast")
     return y, c
 
 
@@ -311,7 +311,7 @@ def stencil3d_residual_restrict(x: torch.Tensor, b: torch.Tensor, *,
         _DTYPE_CODE[x.dtype], x.data_ptr(), b.data_ptr(), rc_.data_ptr(), nx,
         ny, nz, walk_slab(x.shape), diag, off, scale / 8.0, build.stream(x))
     build.check(lib, rc, "stencil3d_residual_restrict")
-    build.launches["stencil3d_residual_restrict"] += 1
+    build.count("stencil3d_residual_restrict")
     return rc_
 
 
@@ -380,7 +380,7 @@ def stencil3d_prolong_jacobi(x: torch.Tensor, b: torch.Tensor,
         out.data_ptr(), nx, ny, nz, walk_slab(x.shape), diag, off,
         omega, build.stream(x))
     build.check(lib, rc, "stencil3d_prolong_jacobi")
-    build.launches["stencil3d_prolong_jacobi"] += 1
+    build.count("stencil3d_prolong_jacobi")
     return out
 
 
@@ -441,7 +441,7 @@ def stencil3d_df_residual(xhi, xlo, bhi, blo, *, diag: float,
         rhi.data_ptr(), rlo.data_ptr(), nx, ny, nz,
         *_coeff_mode(diag, False), *_coeff_mode(off, True), build.stream(xhi))
     build.check(lib, rc, "stencil3d_df_residual")
-    build.launches["stencil3d_df_residual"] += 1
+    build.count("stencil3d_df_residual")
     return rhi, rlo
 
 
@@ -506,5 +506,5 @@ def stencil3d_axpy_mv_dot(z: torch.Tensor, p: torch.Tensor, beta, *,
         pn.data_ptr(), ap.data_ptr(), partials.data_ptr(), dot.data_ptr(), nx,
         ny, nz, diag, off, build.stream(z))
     build.check(lib, rc, "stencil3d_axpy_mv_dot")
-    build.launches["stencil3d_axpy_mv_dot"] += 1
+    build.count("stencil3d_axpy_mv_dot")
     return pn, ap, dot

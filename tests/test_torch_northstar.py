@@ -291,7 +291,10 @@ class TestBoundary:
             "StackedBSROperator", "as_stacked_routed_operator",
             "from_stacked_ell", "stacked_bsr_from_ell", "block_poisson2d_ell",
             "block_split_ell", "StencilStrip2D", "StencilStrip3D", "strip2d",
-            "strip3d"}
+            "strip3d",
+            # slice 9
+            "host_async_solve", "staged_multisplit_solve", "launch_net_async",
+            "net_async_block_solve"}
 
     def test_chip_smoke_refuses_without_a_card(self, tmp_path):
         assert not torch.cuda.is_available()
