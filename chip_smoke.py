@@ -179,6 +179,19 @@ from this checkout and nothing of JAX, and:
    sync schedule), every rank certified and the merged residual under
    1e-3.
 
+12. sharded phase (``sharded_phase``): the distribution layer on a
+   ``(2, 4)`` ``'local'`` mesh on the card: every kernel of the sharded
+   paths (E [mv]/[spmm], A mv/jacobi, B, C, M, F, G, H, I) held against
+   its plain version at the shard-stack shapes and timed; SMSM_GLOBAL 2D
+   4096^2 f32 and 1024^2 f64 (sweeps equal to the stacked solve's) beside
+   the stacked ``smsm``, AM 1024^2, sharded GMRES (f32) and CA-GMRES
+   (s=16, f64) on 3D 64^3, the sharded north-star at 256^3 beside the single-device one (f64
+   rel <= 1e-8 in <= 3 passes), the tiled 4096^2 on ``(2, 2, 2)``, the
+   row-sharded AIJ (kernel H) and block-ELL (kernel I) solves, the
+   collective latency, 2 ``'dist'`` gloo ranks on the card (SM 1024^2 f64,
+   sweeps equal to the local mesh's) and ``dryrun_multichip(8)``.  Each run
+   counted once: the kernels its path needs must launch.
+
 Any failure raises.  The line before the last is a JSON object of the
 kernels; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -246,7 +259,7 @@ ENTRIES = [
 PHASES = ("kernels", "kernels2d", "fusedkernels", "coarse", "sparse",
           "northstar",
           "fused", "northstar2d", "cycle", "golden", "thesis", "inner",
-          "calibration", "api", "stacked", "async")
+          "calibration", "api", "stacked", "async", "sharded")
 # the card's published peaks: memory rate, and f32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = 67e12
@@ -366,6 +379,8 @@ def main() -> None:
             stacked_phase(torch, port, dev, card)
         elif phase == "async":
             async_phase(torch, port, dev, card)
+        elif phase == "sharded":
+            sharded_phase(torch, port, dev, card)
         log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
     if only:
         log(f"partial run of {todo}: no result lines")
@@ -2926,6 +2941,427 @@ def async_phase(torch, port, dev, card) -> None:
         if not all(r["certified"] for r in ranks) or not rel <= rtol:
             raise AssertionError(f"{label}: certified "
                                  f"{[r['certified'] for r in ranks]}, rel {rel}")
+
+
+# ---------------------------------------------------------------------------
+# Sharded phase
+# ---------------------------------------------------------------------------
+
+SHARD_MESH = (2, 4)                     # ('block', 'intra'), 'local'
+SHARD_BSR = (32768, 32)                 # kernel I's sharded pack: n, block
+
+
+def sharded_counted(torch, build, label, run, need, reps: int = 1):
+    """Run ``run`` once counted (counts set to 0 just before, read just
+    after; every kernel of ``need`` must have launched), then ``reps``
+    more times for the wall time.  Returns ``(result, counts, median s,
+    first s)``."""
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = build.launch_counts()
+    missing = [m for m in need if counts.get(m, 0) == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched: {missing}")
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return res, counts, (statistics.median(times) if times else first), first
+
+
+def shard_kernels(torch, dev, card, aij, bsr_op) -> None:
+    """Every kernel of the sharded paths against its plain version at the
+    shard-stack shapes of the runs below, each timed beside its plain
+    version and its bound."""
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import coarse, csr
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import bsr as bk
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import fused
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import stencil2d as e
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import stencil3d as k
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.chebyshev import (
+        chebyshev_coefficients,
+    )
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.multigrid import (
+        _dirichlet_bounds,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+
+    def rnd(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=dtype)
+
+    def held(name, shape, kernel, plain, tol, least, dot_floor=0.0):
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if isinstance(out, tuple):
+            out, ref = out[0], ref[0]
+        err = check(torch, f"sharded {name} {shape}", out, ref, tol,
+                    dot_floor)
+        ms, pms = median_ms(torch, kernel), median_ms(torch, plain)
+        log(f"sharded kernel {name} {shape} [{card}]: max abs err {err:.3e}; "
+            f"{ms:.4f} ms, plain {pms:.4f} ms, bound {least['bound_ms']:.4f} "
+            f"ms ({least['bound_by']})")
+
+    # kernel E: the 4096^2 strips' shard stack, its s=4 panel, the 1024^2
+    # f64 shards
+    for shape, dtype, panel, name in (
+            ((8, 512, 4096), torch.float32, False, "stencil2d_apply[mv]"),
+            ((32, 512, 4096), torch.float32, True, "stencil2d_apply[spmm]"),
+            ((8, 128, 1024), torch.float64, False, "stencil2d_apply[mv]")):
+        x = rnd(shape, dtype)
+        held(name, f"{dtype} {shape}",
+             lambda: e.stencil2d_apply(x, diag=4.0, off=-1.0, panel=panel),
+             lambda: e.stencil2d_apply_plain(x, diag=4.0, off=-1.0), "bits",
+             bound(2 * nbytes(x), 9 * x.numel()))
+    # kernel A: a 64^3 shard and a 256^3 shard, kinds mv and jacobi
+    for shape in ((8, 64, 64), (32, 256, 256)):
+        x, b = rnd(shape), rnd(shape)
+        held("stencil3d_apply[mv]", shape,
+             lambda: k.stencil3d_apply(x, kind="mv", diag=DIAG, off=OFF),
+             lambda: k.stencil3d_apply_plain(x, kind="mv", diag=DIAG,
+                                             off=OFF), "f32",
+             bound(2 * nbytes(x), 13 * x.numel()))
+    held("stencil3d_apply[jacobi]", shape,
+         lambda: k.stencil3d_apply(x, b, kind="jacobi", diag=DIAG, off=OFF,
+                                   omega=OMEGA),
+         lambda: k.stencil3d_apply_plain(x, b, kind="jacobi", diag=DIAG,
+                                         off=OFF, omega=OMEGA), "f32",
+         bound(3 * nbytes(x), 16 * x.numel()))
+    # kernels B, C, M on the 256^3 plan's gathered coarse grid (8^3 -> 4^3)
+    x, b, ec = rnd((8, 8, 8)), rnd((8, 8, 8)), rnd((4, 4, 4))
+    held("stencil3d_residual_restrict", (8, 8, 8),
+         lambda: k.stencil3d_residual_restrict(x, b, diag=DIAG, off=OFF,
+                                               scale=4.0),
+         lambda: k.stencil3d_residual_restrict_plain(x, b, diag=DIAG, off=OFF,
+                                                     scale=4.0), "bits",
+         bound(2 * nbytes(x) + nbytes(ec), 16 * x.numel()))
+    held("stencil3d_prolong_jacobi", (8, 8, 8),
+         lambda: k.stencil3d_prolong_jacobi(x, b, ec, diag=DIAG, off=OFF,
+                                            omega=OMEGA),
+         lambda: k.stencil3d_prolong_jacobi_plain(x, b, ec, diag=DIAG,
+                                                  off=OFF, omega=OMEGA),
+         "f32", bound(3 * nbytes(x) + nbytes(ec), 17 * x.numel()))
+    coefs = chebyshev_coefficients(*_dirichlet_bounds((4, 4, 4), DIAG, OFF),
+                                   COARSE_ITERS, torch.float32)
+    held("stencil3d_chebyshev", (4, 4, 4),
+         lambda: coarse.chebyshev_coarse(ec, dims=(4, 4, 4), diag=DIAG,
+                                         off=OFF, coefs=coefs),
+         lambda: coarse.chebyshev_coarse_plain(ec, dims=(4, 4, 4), diag=DIAG,
+                                               off=OFF, coefs=coefs), "bits",
+         bound(2 * nbytes(ec), COARSE_ITERS * 17 * ec.numel()))
+    # kernels F, G: the 4096^2 shards' GMRES(30) basis at maxiter 20
+    V, w, a = rnd((8, 21, 1 << 21)), rnd((8, 1 << 21)), rnd((8, 21))
+    norms = (torch.linalg.vector_norm(V.double(), dim=-1)
+             * torch.linalg.vector_norm(w.double(), dim=-1)[:, None])
+    held("mdot", tuple(V.shape), lambda: fused.mdot(V, w, 21),
+         lambda: fused.mdot_plain(V, w, 21), "dot",
+         bound(nbytes(V, w), 2 * V.numel()), 1e-6 * norms)
+    held("maxpy", tuple(V.shape), lambda: fused.maxpy(V, a, w, 21),
+         lambda: fused.maxpy_plain(V, a, w, 21), "f32",
+         bound(nbytes(V, w) + nbytes(w), 2 * V.numel()))
+    # kernel H: the 8 row strips of the n = 2^22 matrix (one launch over
+    # the process's strips) against the gathered x
+    ip, ix, dv, part = aij.rows(0, aij.ndev)
+    xa = rnd((aij.n,))
+    held("csr_mv", f"{aij.n} rows, {dv.numel()} nonzeros",
+         lambda: csr.csr_mv(ip, ix, dv, xa, aij.n, aij.n, partition=part),
+         lambda: csr.csr_mv_plain(ip, ix, dv, xa, aij.n, aij.n), "f32",
+         bound(nbytes(ip, ix, dv, xa, xa), 2 * dv.numel()))
+    # kernel I: the block-ELL strips of the sharded general solve
+    idx = bsr_op.idx.reshape(-1, bsr_op.idx.shape[-1]).contiguous()
+    val = bsr_op.val.reshape(-1, *bsr_op.val.shape[2:]).contiguous()
+    xb = rnd((bsr_op.n,))
+    held("bsr_mv", f"{tuple(val.shape)}",
+         lambda: bk.bsr_mv(idx, val, xb, bsr_op.n, bsr_op.n),
+         lambda: bk.bsr_mv_plain(idx, val, xb, bsr_op.n, bsr_op.n), "f32",
+         bound(nbytes(idx, val, xb, xb), 2 * val.numel()))
+
+
+def sharded_bsr_matrix(np, sp):
+    """A block-sparse SPD matrix of ``SHARD_BSR`` (n, block): each block
+    row a dominant diagonal block and one coupling block, symmetrized."""
+    n, c = SHARD_BSR
+    nbr = n // c
+    rng = np.random.default_rng(21)
+    rows, cols = [], []
+    for off in (0, 37):
+        br = np.arange(nbr)
+        bc = (br + off) % nbr
+        i, j = np.meshgrid(np.arange(c), np.arange(c), indexing="ij")
+        rows.append((br[:, None] * c + i.reshape(1, -1)).reshape(-1))
+        cols.append((bc[:, None] * c + j.reshape(1, -1)).reshape(-1))
+    r, cc = np.concatenate(rows), np.concatenate(cols)
+    B = sp.coo_matrix((rng.standard_normal(len(r)) * 0.1, (r, cc)),
+                      shape=(n, n)).tocsr()
+    A = (B + B.T).tocsr()
+    return (A + sp.eye(n, format="csr") * (abs(A).sum(axis=1).max() + 1.0)
+            ).tocsr()
+
+
+def sharded_phase(torch, port, dev, card) -> None:
+    """The distribution layer on the card, every shard of a ``(2, 4)``
+    ``'local'`` mesh in this process.  First every kernel of the sharded
+    paths is held against its plain version at the shard-stack shapes
+    (``shard_kernels``).  Then, each run counted once (the kernels its
+    path needs must launch) and timed: SMSM_GLOBAL 2D 4096^2 (s=4, rtol
+    1e-3, GMRES(30) maxiter 20, f32) beside the stacked ``smsm``, with the
+    busy share; the same at 1024^2 in f64 with sweeps equal to the stacked
+    solve's; AM 1024^2 staleness 2; ``sharded_gmres_solve`` (f32) and
+    ``sharded_ca_gmres_solve`` (s=16, f64) on 3D 64^3; the sharded north-star
+    ``sharded_df_northstar_fused`` on 256^3 beside the single-device
+    ``df_northstar_fused`` (f64 rel <= 1e-8 in <= 3 passes);
+    ``tiled_multisplit_solve`` SMSM_GLOBAL 2D 4096^2 on ``(2, 2, 2)``;
+    ``sharded_aij_solve`` (CG) on the API phase's structureless n = 2^22
+    matrix (kernel H on the 8 row strips); ``sharded_general_solve`` (CG +
+    block-Jacobi) on a block-sparse matrix (kernel I);
+    ``measure_collective_latency`` on the local mesh; 2 ``'dist'`` ranks
+    on the card over gloo (``utils.multihost.launch``), SM 2D 1024^2 f64
+    with sweeps equal to the local mesh's, the start-up time apart and the
+    gloo ring latency; and ``dryrun_multichip(8)`` on the card."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import build
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.parallel import (
+        measure_collective_latency,
+        shard_aij_from_scipy,
+        shard_bjacobi_from_coo,
+        shard_general_from_coo,
+        sharded_aij_solve,
+        sharded_ca_gmres_solve,
+        sharded_general_solve,
+    )
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.parallel.dryrun import (
+        dryrun_multichip,
+    )
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.utils import multihost
+
+    mesh = port.make_mesh(*SHARD_MESH, device=dev)
+    t0 = time.perf_counter()
+    A = structureless_spd(np, sp, SQUARE_N)
+    aij = shard_aij_from_scipy(A, mesh.size, dtype=torch.float32, device=dev)
+    Bm = sharded_bsr_matrix(np, sp)
+    coo = Bm.tocoo()
+    n_b, c_b = SHARD_BSR
+    bsr_op = shard_general_from_coo(coo.row, coo.col, coo.data, n_b,
+                                    mesh.size, c=c_b, dtype=torch.float32,
+                                    device=dev)
+    bsr_pc = shard_bjacobi_from_coo(coo.row, coo.col, coo.data, n_b,
+                                    mesh.size, bs=c_b, dtype=torch.float32,
+                                    device=dev)
+    log(f"sharded: matrices built in {time.perf_counter() - t0:.1f} s "
+        f"(n = 2^22 structureless, {A.nnz} nonzeros; block-sparse n = {n_b}, "
+        f"blocks of {c_b}, {Bm.nnz} nonzeros)")
+    shard_kernels(torch, dev, card, aij, bsr_op)
+
+    e_need = ("stencil2d_apply[mv]", "stencil2d_apply[spmm]", "mdot", "maxpy")
+    sm_need = ("stencil2d_apply[mv]", "mdot", "maxpy")
+    for n, dtype in ((4096, torch.float32), (1024, torch.float64)):
+        op = port.block_poisson2d(n, n)
+        b = port.rhs_ones(op, dtype, dev)
+        cfg = port.ShardedPoisson2D(n, n)
+        label = f"SMSM_GLOBAL 2D {n}^2 {dtype}"
+        sh, counts, wall, first = sharded_counted(
+            torch, build, f"sharded {label}",
+            lambda: port.sharded_multisplit_solve(
+                mesh, cfg, b.reshape(n, n), minimization="global", s=4,
+                rtol=1e-3, maxiter=2000), e_need, reps=2)
+        st, _, st_wall, _ = sharded_counted(
+            torch, build, f"stacked {label}",
+            lambda: port.smsm(op, b, scope="global", s=4, rtol=1e-3,
+                              maxiter=2000), e_need, reps=2)
+        rel = residual_f64(torch, cfg, sh.x, b)
+        log(f"sharded {label} mesh {SHARD_MESH} [{card}]: {sh.sweeps} sweeps "
+            f"({st.sweeps} stacked), {sh.cycles} cycles, converged "
+            f"{sh.converged}, f64 rel {rel:.3e}; wall {wall * 1e3:.1f} ms "
+            f"(first {first * 1e3:.1f} ms), stacked {st_wall * 1e3:.1f} ms; "
+            f"launches {counts}")
+        if not (sh.converged and rel <= 1e-3 * 1.5):
+            raise AssertionError(f"sharded {label}: converged "
+                                 f"{sh.converged}, rel {rel}")
+        if dtype == torch.float64 and sh.sweeps != st.sweeps:
+            raise AssertionError(f"sharded {label}: {sh.sweeps} sweeps, "
+                                 f"stacked {st.sweeps}")
+        if n == 4096:
+            busy_share(torch, f"sharded {label} [{card}]", lambda: (
+                port.sharded_multisplit_solve(
+                    mesh, cfg, b.reshape(n, n), minimization="global", s=4,
+                    rtol=1e-3, maxiter=2000)), wall * 1e3, host_ops=False)
+        del op, b, sh, st
+
+    op = port.block_poisson2d(1024, 1024)
+    b = port.rhs_ones(op, torch.float32, dev)
+    cfg = port.ShardedPoisson2D(1024, 1024)
+    am, counts, wall, _ = sharded_counted(
+        torch, build, "sharded AM 1024^2",
+        lambda: port.sharded_multisplit_solve(
+            mesh, cfg, b.reshape(1024, 1024), schedule="async", staleness=2,
+            rtol=1e-3, maxiter=4000), sm_need, reps=0)
+    rel = residual_f64(torch, cfg, am.x, b)
+    log(f"sharded AM 1024^2 staleness 2 f32 [{card}]: {am.sweeps} sweeps, "
+        f"converged {am.converged}, f64 rel {rel:.3e}; wall {wall:.2f} s; "
+        f"launches {counts}")
+    if not (am.converged and rel <= 1e-3 * 1.5):
+        raise AssertionError(f"sharded AM: converged {am.converged}, rel {rel}")
+
+    # CA-GMRES's one Gram a cycle squares the basis's conditioning: at
+    # s=16 it needs f64 (in f32 its Cholesky fails and the iterate
+    # freezes, in both packages)
+    cfg3 = port.ShardedPoisson3D(64, 64, 64)
+    op3 = port.poisson3d(64, 64, 64)
+    b3 = {t: op3.mv(torch.ones(64, 64, 64, device=dev, dtype=t))
+          for t in (torch.float32, torch.float64)}
+    for label, run, need, b3t in (
+            ("sharded_gmres_solve 3D 64^3 GMRES(30) f32",
+             lambda: port.sharded_gmres_solve(
+                 mesh, cfg3, b3[torch.float32], restart=30, rtol=1e-5,
+                 maxiter=2000),
+             ("stencil3d_apply[mv]", "mdot", "maxpy"), b3[torch.float32]),
+            ("sharded_ca_gmres_solve 3D 64^3 s=16 f64",
+             lambda: sharded_ca_gmres_solve(
+                 mesh, cfg3, b3[torch.float64], s=16, rtol=1e-5,
+                 maxiter=2000),
+             ("stencil3d_apply[mv]",), b3[torch.float64])):
+        res, counts, wall, first = sharded_counted(torch, build, label, run,
+                                                   need, reps=2)
+        rel = residual_f64(torch, op3, res.x, b3t)
+        log(f"{label} [{card}]: {int(res.iters)} iterations, converged "
+            f"{bool(res.converged)}, f64 rel {rel:.3e}; wall "
+            f"{wall * 1e3:.1f} ms (first {first * 1e3:.1f} ms); launches "
+            f"{counts}")
+        if not torch.isfinite(res.x).all() or not rel <= 1e-4:
+            raise AssertionError(f"{label}: rel {rel}")
+
+    ns_need = ("stencil3d_apply[mv]", "stencil3d_apply[jacobi]",
+               "stencil3d_residual_restrict", "stencil3d_prolong_jacobi",
+               "stencil3d_chebyshev")
+    cfg256 = port.ShardedPoisson3D(256, 256, 256)
+    ns, counts, wall, first = sharded_counted(
+        torch, build, "sharded north-star 256^3",
+        lambda: port.sharded_df_northstar_fused(mesh, cfg256, rtol=1e-8),
+        ns_need, reps=2)
+    op256 = port.poisson3d(256, 256, 256)
+    single, _, s_wall, _ = sharded_counted(
+        torch, build, "single-device north-star 256^3",
+        lambda: port.df_northstar_fused(op256, rtol=1e-8, device=dev), (),
+        reps=2)
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import stencil3d as k
+
+    x64 = ns.x[0].double() + ns.x[1].double()
+    b64 = k.stencil3d_apply_plain(torch.ones_like(x64), kind="mv", diag=DIAG,
+                                  off=OFF)
+    rel = float(torch.linalg.vector_norm(b64 - k.stencil3d_apply_plain(
+        x64, kind="mv", diag=DIAG, off=OFF)) / torch.linalg.vector_norm(b64))
+    log(f"sharded_df_northstar_fused 256^3 mesh {SHARD_MESH} [{card}]: "
+        f"{ns.passes} passes, PCG {ns.pcg_iters} (single-device "
+        f"{single.passes} passes, PCG {single.pcg_iters}), df rel "
+        f"{ns.rnorm / ns.rnorm0:.3e}, f64 rel {rel:.3e}, max|x-1| "
+        f"{float((x64 - 1).abs().max()):.3e}; wall {wall * 1e3:.1f} ms "
+        f"(first {first * 1e3:.1f} ms), single-device {s_wall * 1e3:.1f} ms;"
+        f" launches {counts}")
+    if not (ns.converged and rel <= 1e-8 and ns.passes <= 3):
+        raise AssertionError(f"sharded north-star: passes {ns.passes}, rel "
+                             f"{rel}")
+    del ns, single, x64, b64
+
+    tmesh = port.make_tiled_mesh(2, 2, 2, device=dev)
+    op = port.block_poisson2d(4096, 4096)
+    b = port.rhs_ones(op, torch.float32, dev)
+    tl, counts, wall, first = sharded_counted(
+        torch, build, "tiled SMSM_GLOBAL 4096^2",
+        lambda: port.tiled_multisplit_solve(
+            tmesh, 4096, 4096, b.reshape(4096, 4096), minimization="global",
+            s=4, rtol=1e-3, maxiter=2000), e_need, reps=1)
+    rel = residual_f64(torch, port.ShardedPoisson2D(4096, 4096), tl.x, b)
+    log(f"tiled_multisplit_solve SMSM_GLOBAL 2D 4096^2 mesh (2, 2, 2) f32 "
+        f"[{card}]: {tl.sweeps} sweeps, converged {tl.converged}, f64 rel "
+        f"{rel:.3e}; wall {wall * 1e3:.1f} ms (first {first * 1e3:.1f} ms); "
+        f"launches {counts}")
+    if not (tl.converged and rel <= 1e-3 * 1.5):
+        raise AssertionError(f"tiled: converged {tl.converged}, rel {rel}")
+    del op, b, tl
+
+    ba = torch.from_numpy(A @ np.ones(SQUARE_N)).to(dev, torch.float32)
+    res, counts, wall, first = sharded_counted(
+        torch, build, "sharded_aij_solve",
+        lambda: sharded_aij_solve(mesh, aij, ba, method="cg", rtol=1e-5,
+                                  maxiter=200), ("csr_mv",), reps=2)
+    x = res.x.double().cpu().numpy()
+    rel = float(np.linalg.norm(A @ np.ones(SQUARE_N) - A @ x)
+                / np.linalg.norm(A @ np.ones(SQUARE_N)))
+    log(f"sharded_aij_solve CG n = 2^22 structureless, 8 row strips [{card}]:"
+        f" {int(res.iters)} iterations, converged {bool(res.converged)}, f64 "
+        f"rel {rel:.3e}; wall {wall * 1e3:.1f} ms (first {first * 1e3:.1f} "
+        f"ms); launches {counts}")
+    if not (bool(res.converged) and rel <= 1e-5 * 1.5):
+        raise AssertionError(f"sharded AIJ: rel {rel}")
+    bb = torch.from_numpy(Bm @ np.ones(n_b)).to(dev, torch.float32)
+    res, counts, wall, _ = sharded_counted(
+        torch, build, "sharded_general_solve",
+        lambda: sharded_general_solve(mesh, bsr_op, bb, method="cg",
+                                      rtol=1e-5, pc=bsr_pc), ("bsr_mv",),
+        reps=2)
+    err = float((res.x - 1.0).abs().max())
+    log(f"sharded_general_solve CG + block-Jacobi n = {n_b}, blocks of {c_b} "
+        f"[{card}]: {int(res.iters)} iterations, converged "
+        f"{bool(res.converged)}, max|x-1| {err:.3e}; wall {wall * 1e3:.1f} "
+        f"ms; launches {counts}")
+    if not (bool(res.converged) and err < 1e-3):
+        raise AssertionError(f"sharded general: err {err}")
+
+    for axis in ("block", "intra"):
+        lat = measure_collective_latency(mesh, axis, rounds=100)
+        log(f"measure_collective_latency 'local' {axis} [{card}]: {lat}")
+
+    # the same SM on the local mesh and on 2 gloo ranks sharing the card
+    inner = port.InnerConfig()
+    cfg = port.ShardedPoisson2D(1024, 1024)
+    b64 = port.rhs_ones(port.block_poisson2d(1024, 1024), torch.float64, dev)
+    loc, counts, wall, _ = sharded_counted(
+        torch, build, "local SM 1024^2 f64",
+        lambda: port.sharded_multisplit_solve(mesh, cfg, b64.reshape(1024,
+                                                                     1024),
+                                              rtol=1e-3, inner=inner),
+        sm_need, reps=0)
+    x_file = ROOT / "build" / "sharded_dist_x.npy"
+    x_file.parent.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    ranks = multihost.launch(
+        ["--alg", "SM", "--m", "1024", "--n", "1024", "--nblocks", "2",
+         "--intra", "4", "--rtol", "1e-3", "--inner-restart",
+         str(inner.restart), "--inner-maxiter", str(inner.maxiter),
+         "--inner-rtol", str(inner.rtol), "--probe-rounds", "20",
+         "--save-x", str(x_file)],
+        num_processes=2, device="cuda", backend="gloo", timeout_s=300)
+    launch_s = time.perf_counter() - t0
+    x_gap = float(np.abs(np.load(x_file) - loc.x.cpu().numpy()).max())
+    x_file.unlink()
+    log(f"SM 2D 1024^2 f64 [{card}]: local mesh {loc.sweeps} sweeps, rnorm "
+        f"{loc.rnorm.item()!r}, in {wall:.2f} s; 2 'dist' gloo ranks on the "
+        f"card: " + "; ".join(
+            f"rank {r['process_id']} {r['sweeps']} sweeps, rnorm "
+            f"{r['rnorm']!r}, converged {r['converged']}, start-up "
+            f"{r['startup_s']:.2f} s, solve {r['elapsed_s']:.2f} s, gloo ring "
+            f"round along 'block' {r['collective_block']['per_round_us']:.1f}"
+            f" us" for r in ranks) + f"; launch wall {launch_s:.2f} s; "
+        f"max|x_dist - x_local| {x_gap:.3e}")
+    if any(r["sweeps"] != loc.sweeps or not r["converged"] for r in ranks):
+        raise AssertionError(f"dist SM: {[r['sweeps'] for r in ranks]} sweeps,"
+                             f" local {loc.sweeps}")
+
+    t0 = time.perf_counter()
+    dryrun_multichip(8, device=dev)
+    log(f"dryrun_multichip(8) on the card [{card}]: "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 if __name__ == "__main__":

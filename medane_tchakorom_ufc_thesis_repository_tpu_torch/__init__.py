@@ -51,6 +51,15 @@ minimization), ``models.staged.staged_multisplit_solve`` (the stage
 timers) and ``utils.calibrate`` (the routing constants measured on the
 card).
 
+Slice 10, the distribution layer (``parallel``): a ``Mesh`` with axes
+``('block', 'intra')`` or ``('block', 'ir', 'ic')`` whose collectives
+(``psum``, ``ppermute``, ``all_gather``, ``axis_index``) run over shards
+in one process (``'local'``) or across ``torch.distributed`` processes
+(``'dist'``); the solvers' ``axis_name`` hooks; the sharded and tiled
+multisplitting and Krylov solves, MG-PCG and the sharded north-star, the
+row-sharded general-sparse solves; ``utils.multihost`` (one process a
+rank) and ``host_async_solve(intra > 1)``.
+
 On the card every stencil apply, GMRES's Gram-Schmidt pair, and the CSR
 and block-ELL sparse products run hand-written CUDA kernels (``csrc/``,
 ``ops/``); on the CPU the kernels' plain PyTorch versions run.  Entry
@@ -128,6 +137,19 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.staged import (
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops.fused import (
     residual_norm_sq,
 )
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.parallel import (
+    Mesh,
+    ShardedPoisson2D,
+    ShardedPoisson3D,
+    make_mesh,
+    make_tiled_mesh,
+    sharded_df_northstar,
+    sharded_df_northstar_fused,
+    sharded_gmres_solve,
+    sharded_mgpcg_solve,
+    sharded_multisplit_solve,
+    tiled_multisplit_solve,
+)
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.chebyshev import (
     chebyshev,
 )
@@ -163,4 +185,8 @@ __all__ = ["poisson2d", "poisson3d", "Stencil2D", "Stencil3D", "cg", "gmres",
            "from_stacked_ell", "stacked_bsr_from_ell", "block_poisson2d_ell",
            "block_split_ell", "StencilStrip2D", "StencilStrip3D", "strip2d",
            "strip3d", "host_async_solve", "staged_multisplit_solve",
-           "launch_net_async", "net_async_block_solve"]
+           "launch_net_async", "net_async_block_solve", "Mesh", "make_mesh",
+           "make_tiled_mesh", "ShardedPoisson2D", "ShardedPoisson3D",
+           "sharded_multisplit_solve", "sharded_gmres_solve",
+           "sharded_mgpcg_solve", "sharded_df_northstar",
+           "sharded_df_northstar_fused", "tiled_multisplit_solve"]

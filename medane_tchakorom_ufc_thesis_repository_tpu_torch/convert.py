@@ -40,6 +40,14 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.blockops import (
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.multisplitting import (
     MultisplitResult,
 )
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.parallel.general import (
+    ShardedBlockJacobi,
+    ShardedGeneralBSR,
+)
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.parallel.sharded import (
+    ShardedPoisson2D,
+    ShardedPoisson3D,
+)
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.bjacobi import (
     BlockJacobi,
 )
@@ -61,6 +69,13 @@ _OPERATORS = {
     "StackedStencil3D": (StackedStencil3D, ("nx", "ny", "nz", "nblocks")),
     "StencilStrip2D": (StencilStrip2D, ("rows", "n")),
     "StencilStrip3D": (StencilStrip3D, ("rows", "ny", "nz")),
+    "ShardedPoisson2D": (ShardedPoisson2D, ("m", "n")),
+    "ShardedPoisson3D": (ShardedPoisson3D, ("nx", "ny", "nz")),
+}
+# the sharded general operators: (class, array fields, plain int fields)
+_SHARDED = {
+    "ShardedGeneralBSR": (ShardedGeneralBSR, ("idx", "val"), ("n",)),
+    "ShardedBlockJacobi": (ShardedBlockJacobi, ("inv",), ()),
 }
 # MultisplitResult fields that are arrays (the rest are counts and flags)
 _RESULT_ARRAYS = ("x", "inner_iters", "rnorm", "rnorm0", "local_rnorms",
@@ -95,9 +110,18 @@ def from_jax_operator(op, device=None):
     (``StackedELLOperator``, ``StackedDIAOperator``,
     ``StackedBSROperator``), whose arrays land on ``device`` (None: the
     current CUDA device).  A BSR pack that shares its transpose pack keeps
-    sharing it.  The JAX ``AIJ`` keeps only its routed plan: build the
-    port's from the COO triplets with ``aij_from_coo``."""
+    sharing it.  The sharded configurations (``ShardedPoisson2D/3D``) and
+    the sharded general operators (``ShardedGeneralBSR``,
+    ``ShardedBlockJacobi``: their numpy arrays) come across too.  The JAX
+    ``AIJ`` and ``ShardedAIJ`` keep only their routed plans: build the
+    port's from the COO triplets with ``aij_from_coo`` and
+    ``parallel.general.shard_aij_from_coo``."""
     name = type(op).__name__
+    if name in _SHARDED:
+        cls, arrays, plain = _SHARDED[name]
+        return cls(**{f: tensor_from_numpy(np.asarray(getattr(op, f)), device)
+                      for f in arrays},
+                   **{f: int(getattr(op, f)) for f in plain})
     if name in _ASSEMBLED:
         cls, arrays, plain = _ASSEMBLED[name]
         seen = {}

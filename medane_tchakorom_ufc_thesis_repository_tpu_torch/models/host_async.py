@@ -90,6 +90,73 @@ def _gmres_sweep(mv, inner: InnerConfig):
     return sweep
 
 
+def _intra_config(op, intra: int, minimization):
+    """The sharded stencil of one block for ``intra > 1``, with JAX's
+    errors."""
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.blockops import (
+        StackedStencil2D,
+        StackedStencil3D,
+    )
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.parallel.sharded import (
+        ShardedPoisson2D,
+        ShardedPoisson3D,
+    )
+
+    if minimization is not None:
+        raise ValueError("intra>1 host_async runs AM (no minimization yet)")
+    if isinstance(op, StackedStencil2D):
+        opcfg = ShardedPoisson2D(op.rows, op.n, op.diag, op.off)
+    elif isinstance(op, StackedStencil3D):
+        opcfg = ShardedPoisson3D(op.rows, op.ny, op.nz, op.diag, op.off)
+    else:
+        raise ValueError("intra>1 host_async needs a stencil block operator")
+    if opcfg.split_extent % intra:
+        raise ValueError(f"block rows {opcfg.split_extent} not divisible by "
+                         f"intra={intra}")
+    return opcfg
+
+
+def _sharded_sweep(opcfg, intra: int, inner: InnerConfig, device):
+    """``_gmres_sweep`` of one block over its own ``('intra',)`` sub-mesh
+    of ``intra`` shards on the ``'local'`` transport: the block's rows
+    split into ``intra`` strips, boundary rows exchanged by ``ppermute``,
+    the dots reduced by ``psum`` over 'intra'."""
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.parallel.mesh import (
+        Mesh,
+    )
+
+    sub = Mesh(("intra",), (intra,), device=device)
+    up = [(i, i + 1) for i in range(intra - 1)]
+    dn = [(i, i - 1) for i in range(1, intra)]
+    spec = ("intra",)
+    shape = (opcfg.split_extent, opcfg.fdim)
+
+    def diag_mv(g):
+        top = sub.ppermute(g[..., -1, :], "intra", up)
+        bot = sub.ppermute(g[..., 0, :], "intra", dn)
+        y = opcfg.interior_mv(g)
+        y[..., 0, :] += opcfg.off * top
+        y[..., -1, :] += opcfg.off * bot
+        return y
+
+    def sweep(rhs_b, x_b):
+        rhs = sub.shard(rhs_b.reshape(shape), spec)
+        x = sub.shard(x_b.reshape(shape), spec)
+        r_pre = rhs - diag_mv(x)
+        pre = torch.sqrt(sub.local(sub.psum(
+            torch.sum(r_pre * r_pre, dim=(1, 2)), "intra")))
+        res = krylov.gmres(
+            lambda v: diag_mv(v.reshape(rhs.shape)).reshape(intra, -1),
+            rhs.reshape(intra, -1), x.reshape(intra, -1),
+            restart=inner.restart, maxiter=inner.maxiter, rtol=inner.rtol,
+            atol=inner.atol, orthog=inner.orthog, axis_name="intra",
+            mesh=sub)
+        return sub.unshard(res.x.reshape(rhs.shape), spec, shape).reshape(
+            -1), pre
+
+    return sweep
+
+
 def _minimize_local(mv, S_cols, rhs_b):
     """The block's own s-column basis minimized against ``rhs_b``: ``R =
     A_kk S`` per column, a direct tall-skinny least squares (the analog
@@ -232,9 +299,13 @@ def host_async_solve(
     of unequal speed.  ``outer`` is accepted for the JAX signature: the
     minimizations here solve their own small systems.
 
-    ``intra``: devices per block (the reference's npb ranks per block).
-    ``intra > 1`` needs the port's sharded backend, which is not ported
-    yet: it raises ``NotImplementedError``.
+    ``intra``: shards per block (the reference's npb ranks per block,
+    ``iSolve --npb``).  With ``intra > 1`` each block's thread drives a
+    sharded inner GMRES over its own ``('intra',)`` sub-mesh on the
+    ``'local'`` transport (``parallel.mesh``): ppermute halos and psum
+    dots inside the block, on the block's device and stream, while the
+    blocks stay asynchronous through the mailboxes.  Stencil block
+    operators, AM only (no minimization), as in the JAX package.
     """
     if minimization not in (None, "local", "semi_local", "global"):
         raise ValueError(f"unknown minimization {minimization!r}")
@@ -245,11 +316,7 @@ def host_async_solve(
             "host_async backend does not implement inner "
             f"preconditioning (got pc={inner.pc!r}); use the stacked "
             "backend for --inner-pc-type")
-    if intra > 1:
-        raise NotImplementedError(
-            f"host_async intra={intra} runs each block on a sharded inner "
-            "solve, which needs the port's sharded backend (ROADMAP Queue "
-            "1 item 7, distribution); use intra=1")
+    opcfg = _intra_config(op, intra, minimization) if intra > 1 else None
     nb, bs = op.nblocks, op.block_size
     dtype = b.dtype
     np_dtype = _np_dtype(dtype)
@@ -300,7 +367,8 @@ def host_async_solve(
                         torch.cuda.Stream(dev)))
                 b_k = bks[k]
                 mv = _block_mv(op, k)
-                sweep = _gmres_sweep(mv, inner)
+                sweep = (_gmres_sweep(mv, inner) if opcfg is None
+                         else _sharded_sweep(opcfg, intra, inner, dev))
                 x = torch.zeros((bs,), dtype=dtype, device=dev)
                 node = nodes[k]
                 peer_versions = {j: 0 for j in all_ranks if j != k}

@@ -20,6 +20,8 @@ import torch
 
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.krylov import (
     KrylovResult,
+    _sharded_b,
+    make_reducer,
 )
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.lstsq import (
     full_matmul,
@@ -56,6 +58,8 @@ def ca_gmres(
     lmax: Optional[float] = None,
     reductions: str = "column",
     fixed_cycles: bool = False,
+    axis_name=None,
+    mesh=None,
 ) -> KrylovResult:
     """Restarted s-step GMRES for one system ``b`` of shape ``(n,)``.
     ``shifts`` (length >= s) or the spectral interval ``[lmin, lmax]``
@@ -68,9 +72,16 @@ def ca_gmres(
     included, from one Gram matrix per cycle (conditioning squared: f64,
     or small ``s`` in f32).  ``fixed_cycles`` takes ``ceil(maxiter / s)``
     cycles with masked updates and no host read.  Otherwise the loop test
-    is read on the host once per cycle (``KrylovResult.syncs``)."""
+    is read on the host once per cycle (``KrylovResult.syncs``).
+
+    ``axis_name``/``mesh``: a sharded solve (``_ca_gmres_sharded``)."""
     if reductions not in ("column", "single"):
         raise ValueError(f"unknown reductions mode {reductions!r}")
+    if _sharded_b(b, axis_name, mesh):
+        return _ca_gmres_sharded(
+            matvec, b, x0, s=s, maxiter=maxiter, rtol=rtol, atol=atol,
+            shifts=shifts, lmin=lmin, lmax=lmax, reductions=reductions,
+            fixed_cycles=fixed_cycles, psum=make_reducer(axis_name, mesh))
     dtype, dev = b.dtype, b.device
     if shifts is None:
         if lmin is not None and lmax is not None:
@@ -161,6 +172,115 @@ def ca_gmres(
         while True:
             syncs += 1
             if not bool(~state[3] & (state[1] < maxiter)):
+                break
+            state = body(*state)
+    x, iters, rnorm, converged = state
+    return KrylovResult(x=x, iters=iters, resnorm=rnorm, resnorm0=beta0,
+                        converged=converged, syncs=syncs)
+
+
+def _ca_gmres_sharded(matvec, b, x0, *, s, maxiter, rtol, atol, shifts, lmin,
+                      lmax, reductions, fixed_cycles, psum) -> KrylovResult:
+    """``ca_gmres`` on a flattened shard stack ``b`` of shape ``(shards,
+    n)``: the JAX ``axis_name`` form.  Each shard builds its rows of the
+    basis; the least squares runs on ``psum``-reduced Gram matrices, one
+    per cycle with ``reductions="single"`` (everything from the
+    ``(s+1, s+1)`` Gram of the capacity-scaled basis), or, for
+    ``"column"``, the ``(s, s)`` Gram of the normalized basis's ``A K``
+    columns (the distributed rows admit no panel QR); the small algebra
+    is replicated on every shard, batched over the shards."""
+    dtype, dev = b.dtype, b.device
+    nsh = b.shape[0]
+    if shifts is None:
+        if lmin is not None and lmax is not None:
+            shifts = chebyshev_shifts(lmin, lmax, s)
+        else:
+            shifts = [0.0] * s
+    shifts = [float(t) for t in list(shifts)[:s]]
+    theta = torch.tensor(shifts, dtype=dtype, device=dev)
+
+    def pnorm2(v):
+        return psum(torch.sum(v * v, dim=-1))
+
+    x = torch.zeros_like(b) if x0 is None else x0
+    r0 = b - matvec(x)
+    beta0 = torch.sqrt(pnorm2(r0))
+    tol = torch.clamp_min(rtol * beta0, atol)
+    tiny = torch.finfo(dtype).tiny
+    eps = torch.finfo(dtype).eps
+    capacity = ((lmax - lmin) / 4.0
+                if lmin is not None and lmax is not None and lmax > lmin
+                else 1.0)
+    eye_s = torch.eye(s, dtype=dtype, device=dev)
+
+    def chol_solve(Gm, c):
+        jitter = eps * (torch.diagonal(Gm, dim1=-2, dim2=-1).sum(-1) / s
+                        + 1.0)
+        ch, info = torch.linalg.cholesky_ex(Gm + jitter[:, None, None] * eye_s)
+        return torch.cholesky_solve(c[:, :, None], ch)[:, :, 0], info
+
+    def commit(active, running, x, iters, rnorm, converged, x_new, rnorm_new):
+        return (torch.where(active[:, None], x_new, x),
+                torch.where(running, iters + s, iters),
+                torch.where(active, rnorm_new, rnorm),
+                converged | (active & (rnorm_new <= tol)))
+
+    def cycle_single(x, iters, rnorm, converged):
+        r = b - matvec(x)
+        W = [r]
+        for th in shifts:
+            W.append((matvec(W[-1]) - th * W[-1]) / capacity)
+        W = torch.stack(W, dim=1)                            # (nsh, s+1, n)
+        G = psum(full_matmul(W, W.transpose(1, 2)))
+        B = (capacity * torch.eye(s, s + 1, dtype=dtype, device=dev).roll(
+            1, dims=1) + theta[:, None] * torch.eye(s, s + 1, dtype=dtype,
+                                                    device=dev))
+        Gc = full_matmul(full_matmul(B, G), B.T)
+        c = full_matmul(B, G[:, :, 0:1])[:, :, 0]
+        y, info = chol_solve(Gc, c)
+        x_new = x + full_matmul(y[:, None, :], W[:, :s])[:, 0]
+        rsq = (G[:, 0, 0] - 2.0 * torch.sum(y * c, -1)
+               + torch.sum(y * full_matmul(Gc, y[:, :, None])[:, :, 0], -1))
+        rnorm_new = torch.sqrt(torch.clamp_min(rsq, 0.0))
+        finite = torch.isfinite(rsq) & torch.isfinite(y).all(-1) & (info == 0)
+        running = ~converged & (iters < maxiter)
+        return commit(running & finite, running, x, iters, rnorm, converged,
+                      x_new, rnorm_new)
+
+    def cycle(x, iters, rnorm, converged):
+        r = b - matvec(x)
+        beta = torch.sqrt(pnorm2(r))
+        K = [r / torch.clamp_min(beta, tiny)[:, None]]
+        sigmas = []
+        for th in shifts:
+            w = matvec(K[-1]) - th * K[-1]
+            sigma = torch.sqrt(pnorm2(w))
+            K.append(w / torch.clamp_min(sigma, tiny)[:, None])
+            sigmas.append(sigma)
+        K = torch.stack(K, dim=1)                            # (nsh, s+1, n)
+        C = (torch.stack(sigmas, dim=1)[:, :, None] * K[:, 1:]
+             + theta[:, None] * K[:, :s])
+        G = psum(full_matmul(C, C.transpose(1, 2)))
+        c = psum(full_matmul(C, r[:, :, None])[:, :, 0])
+        y, _ = chol_solve(G, c)
+        x_new = x + full_matmul(y[:, None, :], K[:, :s])[:, 0]
+        res = r - full_matmul(y[:, None, :], C)[:, 0]
+        rnorm_new = torch.sqrt(pnorm2(res))
+        active = ~converged & (iters < maxiter)
+        return commit(active, active, x, iters, rnorm, converged, x_new,
+                      rnorm_new)
+
+    body = cycle_single if reductions == "single" else cycle
+    state = (x, torch.zeros(nsh, dtype=torch.int32, device=dev), beta0,
+             beta0 <= tol)
+    syncs = 0
+    if fixed_cycles:
+        for _ in range(-(-maxiter // s)):
+            state = body(*state)
+    else:
+        while True:
+            syncs += 1
+            if not bool((~state[3] & (state[1] < maxiter)).any()):
                 break
             state = body(*state)
     x, iters, rnorm, converged = state

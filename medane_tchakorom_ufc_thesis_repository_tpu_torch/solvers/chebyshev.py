@@ -24,6 +24,8 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops.coarse import (
 )
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.krylov import (
     KrylovResult,
+    _sharded_b,
+    make_reducer,
 )
 
 
@@ -61,6 +63,8 @@ def chebyshev(
     maxiter: int = 20,
     rtol: float = 0.0,
     batched: bool = False,
+    axis_name=None,
+    mesh=None,
 ) -> KrylovResult:
     """Run ``maxiter`` Chebyshev iterations from ``x0`` (default zero) for
     SPD ``A`` with eigenvalues in ``[lmin, lmax]`` (the scaled and shifted
@@ -71,8 +75,18 @@ def chebyshev(
     system, as under the JAX package's ``vmap``.  Otherwise the norms are
     over all of ``b``.  ``converged`` reports ``rnorm <= rtol * rnorm0``
     (always False at the default rtol=0: a fixed-iteration smoother makes
-    no convergence claim)."""
+    no convergence claim).
+
+    ``axis_name``/``mesh``: a sharded solve, ``b`` a flattened shard
+    stack ``(shards, n)``: the two norms are per-shard partials reduced
+    over the mesh axes; the steps need no reduction."""
+    psum = None
+    if _sharded_b(b, axis_name, mesh):
+        batched, psum = True, make_reducer(axis_name, mesh)
+
     def norm(v: torch.Tensor) -> torch.Tensor:
+        if psum is not None:
+            return torch.sqrt(psum(torch.sum(v * v, dim=-1)))
         if batched:
             return torch.sqrt(torch.sum(v * v, dim=tuple(range(1, v.dim()))))
         return torch.sqrt(torch.sum(v * v))

@@ -31,17 +31,23 @@ DF = Tuple[torch.Tensor, torch.Tensor]  # (hi, lo), value = hi + lo
 _EXACT_SCALES = (1.0, 2.0, 4.0, 0.5, 0.25)
 
 
-def scaled_norm(x: torch.Tensor, axes=None) -> torch.Tensor:
+def scaled_norm(x: torch.Tensor, axes=None, mesh=None) -> torch.Tensor:
     """f32-safe 2-norm (0-d tensor): scale by the max first, since the
-    squares of ~1e-11 values underflow the f32 range.  ``axes`` names the
-    mesh axes of the JAX package's sharded form; this port runs on one
-    device, so only None is taken."""
-    if axes is not None:
-        raise NotImplementedError(
-            "scaled_norm over mesh axes belongs to the sharded solvers "
-            "(parallel/), which are not ported")
-    m = torch.clamp_min(torch.amax(torch.abs(x)), 1e-30)
-    ss = torch.sum(torch.square(x / m))
+    squares of ~1e-11 values underflow the f32 range.  ``axes``/``mesh``:
+    ``x`` is a shard stack with ``mesh``'s local dims leading; the max is
+    ``pmax``-ed and the sum of squares ``psum``-med over the mesh axes
+    ``axes``, and the norm comes back one per shard, replicated."""
+    if axes is None:
+        m = torch.clamp_min(torch.amax(torch.abs(x)), 1e-30)
+        ss = torch.sum(torch.square(x / m))
+        return m * torch.sqrt(ss)
+    if mesh is None:
+        raise ValueError("scaled_norm over mesh axes needs the mesh (mesh=)")
+    tile = tuple(range(mesh.ndim, x.dim()))
+    m = mesh.pmax(torch.clamp_min(torch.amax(torch.abs(x), dim=tile), 1e-30),
+                  axes)
+    pad = (slice(None),) * mesh.ndim + (None,) * len(tile)
+    ss = mesh.psum(torch.sum(torch.square(x / m[pad]), dim=tile), axes)
     return m * torch.sqrt(ss)
 
 

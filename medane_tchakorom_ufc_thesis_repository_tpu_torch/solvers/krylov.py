@@ -8,6 +8,13 @@ loop: the loop's test is computed on the device, in the solve's dtype,
 exactly as JAX computes it, and read on the host (CG, BiCGStab and MINRES
 once per iteration, GMRES once per restart cycle).
 ``KrylovResult.syncs`` counts those reads.
+
+Every solver takes JAX's ``axis_name`` with the port's ``mesh``
+(``parallel/mesh.py``): the vectors are then a flattened shard stack
+``(shards, n)``, one row a shard of this process, and every dot product
+and norm is a local partial followed by the mesh's ``psum`` over
+``axis_name`` (``make_reducer``), so each shard holds the replicated
+scalars of its system.  With ``axis_name=None`` nothing changes.
 """
 
 from __future__ import annotations
@@ -36,6 +43,31 @@ class KrylovResult:
     syncs: int = 0             # host reads of device values
 
 
+def make_reducer(axis_name=None, mesh=None):
+    """The ``psum`` over the mesh axes ``axis_name`` of partials whose
+    leading axis runs over this process's shards (identity when
+    ``axis_name`` is None): what makes the solvers distribution-agnostic,
+    as PETSc's VecDot/VecNorm are collectives over a communicator
+    (reference ``src/utils/utils.c:560-573``)."""
+    if axis_name is None:
+        return lambda v: v
+    if mesh is None:
+        raise ValueError("axis_name needs the mesh that names it (mesh=)")
+    return mesh.reducer(axis_name)
+
+
+def _sharded_b(b: torch.Tensor, axis_name, mesh) -> bool:
+    """Whether a solve is sharded; a sharded ``b`` is ``(shards, n)``."""
+    if axis_name is None:
+        return False
+    if b.dim() != 2 or mesh is None or b.shape[0] != mesh.nlocal:
+        raise ValueError(
+            f"a sharded solve takes b as (shards, n) with the mesh's "
+            f"{getattr(mesh, 'nlocal', '?')} local shards, got "
+            f"{tuple(b.shape)}")
+    return True
+
+
 def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
@@ -44,20 +76,22 @@ def _rowdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b, dim=-1)
 
 
-def _batch_ops(batched: bool):
+def _batch_ops(batched: bool, psum=None):
     """``(dot, col, commit)`` of a solve over one system or a batch.  One
     system: ``b`` of any shape, scalars 0-dim.  A batch: ``b`` is
     ``(k, n)``, every scalar of the recurrence is ``(k,)``, ``col`` makes
     one broadcast against the vectors, and ``commit(live, new, old)``
     keeps the old state of the systems whose loop test has failed (what
-    ``jax.vmap`` of a ``while_loop`` does)."""
+    ``jax.vmap`` of a ``while_loop`` does).  ``psum``: a sharded solve's
+    reducer; the rows are then shards and each dot is reduced over them."""
     if not batched:
         return _vdot, (lambda s: s), (lambda live, new, old: new)
 
     def commit(live, new, old):
         return torch.where(live if new.dim() == 1 else live[:, None], new, old)
 
-    return _rowdot, (lambda s: s[:, None]), commit
+    dot = _rowdot if psum is None else (lambda a, b: psum(_rowdot(a, b)))
+    return dot, (lambda s: s[:, None]), commit
 
 
 def _ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -101,6 +135,8 @@ def cg(
     precond_dot: Optional[Callable] = None,
     matvec_axpy_dot: Optional[Callable] = None,
     batched: bool = False,
+    axis_name=None,
+    mesh=None,
 ) -> KrylovResult:
     """Preconditioned CG for SPD systems, stopping on the TRUE residual
     norm ``||r||_2 <= max(rtol * rnorm0, atol)`` (PETSc's unpreconditioned
@@ -122,14 +158,18 @@ def cg(
     matvec, and serves one system only.  ``beta`` reaches it as a 0-d
     tensor on the device: the hook adds no host read.  ``divtol``: stop, not
     converged, once the residual exceeds ``divtol * rnorm0`` (0
-    disables).  The preconditioner runs at the start of each iteration,
+    disables).  ``axis_name``/``mesh``: a sharded solve (``b`` is
+    ``(shards, n)``; the fused hooks' dots are partials, reduced here).  The preconditioner runs at the start of each iteration,
     so the last iteration skips a dead apply; ``beta`` and ``alpha`` are
     guarded against zero denominators as in the JAX package, so the
     iteration counts match it.
     """
+    psum = None
+    if _sharded_b(b, axis_name, mesh):
+        batched, psum = True, make_reducer(axis_name, mesh)
     if batched and matvec_axpy_dot is not None:
         raise ValueError("matvec_axpy_dot serves one system, not a batch")
-    dot = _batch_ops(batched)[0]
+    dot = _batch_ops(batched, psum)[0]
     x, r, rs, rn0, tol = _start(matvec, b, x0, rnorm0, rtol, atol, dot)
     s = PCGState(x=x, r=r, p=torch.zeros_like(b), rs=rs,
                  rz=torch.ones_like(rs))
@@ -142,7 +182,8 @@ def cg(
             break
         pcg_iteration(s, trips == 0, live, matvec=matvec, precond=precond,
                       precond_dot=precond_dot, matvec_dot=matvec_dot,
-                      matvec_axpy_dot=matvec_axpy_dot, batched=batched)
+                      matvec_axpy_dot=matvec_axpy_dot, batched=batched,
+                      psum=psum)
         iters = _count(iters, live, 1, batched)
         trips += 1
     rnorm = torch.sqrt(s.rs)
@@ -172,7 +213,8 @@ def pcg_live(rs, tol, rn0, divtol: float) -> torch.Tensor:
 
 def pcg_iteration(s: PCGState, first, live=None, *, matvec, precond=None,
                   precond_dot=None, matvec_dot=None, matvec_axpy_dot=None,
-                  batched: bool = False, in_place: bool = False) -> None:
+                  batched: bool = False, in_place: bool = False,
+                  psum=None) -> None:
     """One iteration of ``cg`` on the state ``s``, which it updates: the
     body of ``cg``'s loop and of the north-star's CUDA graph
     (``solvers/refine.py``), the same operations in the same order.
@@ -183,14 +225,16 @@ def pcg_iteration(s: PCGState, first, live=None, *, matvec, precond=None,
     systems of a batch that iterate (``batched`` only).  ``in_place``
     (one system): x, r and p are written into their own storage, rs and
     rz copied into theirs, so that a graph's state stays in static
-    buffers; the values are those of the other form to the bit."""
+    buffers; the values are those of the other form to the bit.  ``psum``:
+    a sharded solve's reducer (``batched`` rows are shards)."""
     if in_place and (batched or matvec_axpy_dot is not None):
         raise ValueError("in_place serves one system without matvec_axpy_dot")
     dtype = s.r.dtype
-    dot, col, commit = _batch_ops(batched)
+    dot, col, commit = _batch_ops(batched, psum)
+    red = (lambda v: v) if psum is None else psum
     if precond_dot is not None:
         z, rz_loc = precond_dot(s.r)
-        rz_new = rz_loc.to(dtype)
+        rz_new = red(rz_loc.to(dtype))
     else:
         z = s.r if precond is None else precond(s.r)
         rz_new = dot(s.r, z)
@@ -206,6 +250,7 @@ def pcg_iteration(s: PCGState, first, live=None, *, matvec, precond=None,
         p_new = torch.add(z, col(beta) * s.p, out=s.p if in_place else None)
         if matvec_dot is not None:
             ap, pap = matvec_dot(p_new)
+            pap = red(pap)
         else:
             ap = matvec(p_new)
             pap = dot(p_new, ap)
@@ -236,14 +281,19 @@ def bicgstab(
     precond: Optional[Callable] = None,
     divtol: float = 1e5,
     batched: bool = False,
+    axis_name=None,
+    mesh=None,
 ) -> KrylovResult:
     """BiCGStab for general systems (the PETSc KSPBCGS analog).  ``iters``
     counts matvecs, two per step.  ``precond``: optional RIGHT
     preconditioner: the recurrence runs on ``A M`` and maps back at exit,
     so the test sees the true residual.  A breakdown (``rho``, ``rhat·v``
     or ``t·t`` zero) freezes the iterate and ends the solve, reported as
-    not converged.  ``batched`` as in ``cg``."""
-    dot, col, commit = _batch_ops(batched)
+    not converged.  ``batched``, ``axis_name`` and ``mesh`` as in ``cg``."""
+    psum = None
+    if _sharded_b(b, axis_name, mesh):
+        batched, psum = True, make_reducer(axis_name, mesh)
+    dot, col, commit = _batch_ops(batched, psum)
     amv = matvec if precond is None else (lambda v: matvec(precond(v)))
     x0_, r, rs, rn0, tol = _start(matvec, b, x0, rnorm0, rtol, atol, dot)
     rhat = r                 # fixed shadow vector
@@ -309,14 +359,19 @@ def minres(
     precond: Optional[Callable] = None,
     divtol: float = 1e5,
     batched: bool = False,
+    axis_name=None,
+    mesh=None,
 ) -> KrylovResult:
     """MINRES for symmetric, possibly indefinite systems (the PETSc
     KSPMINRES analog): Paige-Saunders Lanczos and Givens recurrences, one
     matvec per iteration.  ``precond``: optional SPD preconditioner; the
     recurrence residual, and so the test, is then ``||r||_M``.  An
     indefinite ``M`` freezes the solve, reported as not converged.
-    ``batched`` as in ``cg``."""
-    dot, col, commit = _batch_ops(batched)
+    ``batched``, ``axis_name`` and ``mesh`` as in ``cg``."""
+    psum = None
+    if _sharded_b(b, axis_name, mesh):
+        batched, psum = True, make_reducer(axis_name, mesh)
+    dot, col, commit = _batch_ops(batched, psum)
     M = (lambda v: v) if precond is None else precond
     eps = torch.finfo(b.dtype).eps
     x = torch.zeros_like(b) if x0 is None else x0
@@ -408,6 +463,8 @@ def gmres(
     stag_tol: float = 0.0,
     basis_dtype: Optional[torch.dtype] = None,
     divtol: float = 1e5,
+    axis_name=None,
+    mesh=None,
 ) -> KrylovResult:
     """Restarted GMRES with classical Gram-Schmidt and Givens least squares
     (the JAX ``krylov.gmres``), for a batch of independent systems.
@@ -439,9 +496,20 @@ def gmres(
     converged, a system whose true residual falls by less than that
     fraction over a restart cycle; ``divtol`` stops, not converged, one
     whose residual exceeds ``divtol * rnorm0``.
+
+    ``axis_name``/``mesh``: a sharded solve.  The rows of ``b`` are this
+    process's shards of one system each shard group shares; each
+    projection is kernel F's local partials followed by the mesh's
+    ``psum``, each norm a local sum of squares followed by it, and the
+    Givens state is replicated on every shard.
     """
     if orthog not in ("cgs", "cgs2"):
         raise ValueError(f"unknown orthog {orthog!r}")
+    if _sharded_b(b, axis_name, mesh):
+        psum = make_reducer(axis_name, mesh)
+        norms = lambda v: torch.sqrt(psum(torch.sum(v * v, dim=-1)))  # noqa: E731
+    else:
+        psum, norms = (lambda v: v), _norms
     if b.dim() == 1:
         one = matvec
         res = gmres(lambda v: one(v[0])[None], b[None],
@@ -466,7 +534,7 @@ def gmres(
     # x0 = 0 => r0 = b exactly: skip the initial matvec
     x = torch.zeros_like(b) if x0 is None else x0
     r0 = b if x0 is None else b - matvec(x0)
-    beta0 = _norms(r0)
+    beta0 = norms(r0)
     rn0 = beta0 if rnorm0 is None else torch.as_tensor(
         rnorm0, dtype=dtype, device=dev).expand(nsys)
     tol = torch.clamp_min(rtol * rn0, atol)
@@ -480,7 +548,7 @@ def gmres(
 
     def cycle(x, iters, rnorm, converged, beta_prev, diverged):
         r = b - matvec(x)
-        beta = _norms(r)
+        beta = norms(r)
         if stag_tol > 0.0:
             # true-residual stagnation between restart cycles (the
             # reference's MyConvergeTest), reported as converged
@@ -498,13 +566,13 @@ def gmres(
             active = ~converged & (iters < maxiter)
             w = matvec(Vs[j].to(dtype))
             # classical Gram-Schmidt against the j+1 live rows
-            h = mdot(V, w, j + 1)
+            h = psum(mdot(V, w, j + 1))
             w = maxpy(V, -h, w, j + 1)
             if orthog == "cgs2":
-                h2 = mdot(V, w, j + 1)
+                h2 = psum(mdot(V, w, j + 1))
                 w = maxpy(V, -h2, w, j + 1)
                 h = h + h2
-            hj1 = _norms(w)
+            hj1 = norms(w)
             pos = hj1 > 0
             vnext = torch.where(pos[:, None],
                                 w / torch.where(pos, hj1, 1.0)[:, None], w)

@@ -13,7 +13,9 @@ import torch
 
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.krylov import (
     KrylovResult,
+    _sharded_b,
     cg,
+    make_reducer,
 )
 
 
@@ -35,12 +37,28 @@ def lsqr(
     maxiter: int = 100,
     rtol: float = 1e-8,
     atol: float = 0.0,
+    axis_name=None,
+    lockstep_axis=None,
+    mesh=None,
 ) -> KrylovResult:
     """Paige-Saunders LSQR for ``min ||b - A x||_2``: Golub-Kahan
     bidiagonalization, stopping when the residual estimate drops under
     ``max(rtol ||b - A x0||, atol)`` or the estimate of ``||A^T r||``
     under ``rtol ||A^T b|| + atol`` (the least-squares optimum of an
-    inconsistent system), or at ``maxiter``."""
+    inconsistent system), or at ``maxiter``.
+
+    ``axis_name``/``mesh`` shard the ROW space of A: ``b`` and ``u`` are
+    ``(shards, rows)``, ``x`` and ``v`` ``(shards, n)`` replicated, the
+    row-space norms are reduced over ``axis_name``, and the caller's
+    ``rmatvec`` reduces itself.  ``lockstep_axis``: a mesh axis whose
+    shards run independent instances that must take one trip count: the
+    loop runs while any instance along it is active, the others iterating
+    on unmasked (their divisions are guarded), as in JAX."""
+    if _sharded_b(b, axis_name, mesh):
+        return _lsqr_sharded(matvec, rmatvec, b, x0, n, maxiter=maxiter,
+                             rtol=rtol, atol=atol,
+                             psum=make_reducer(axis_name, mesh),
+                             lock=make_reducer(lockstep_axis, mesh))
     dtype = b.dtype
     b_eff = b if x0 is None else b - matvec(x0)
     if n is None:
@@ -78,6 +96,62 @@ def lsqr(
         phibar = s * phibar
         x = x + (phi / rho) * w
         w = v - (theta / rho) * w
+        rnorm = torch.abs(phibar)
+        arnorm = torch.abs(phibar * alpha * c)
+        iters += 1
+    if x0 is not None:
+        x = x0 + x
+    return KrylovResult(x=x, iters=iters, resnorm=rnorm, resnorm0=beta0,
+                        converged=(rnorm <= tol) | (arnorm <= artol),
+                        syncs=syncs)
+
+
+def _lsqr_sharded(matvec, rmatvec, b, x0, n, *, maxiter, rtol, atol, psum,
+                  lock) -> KrylovResult:
+    """``lsqr`` on a shard stack: every scalar is ``(shards,)``."""
+    def unorm(vec):
+        return torch.sqrt(psum(torch.sum(vec * vec, dim=-1)))
+
+    def col(t):
+        return t[:, None]
+
+    b_eff = b if x0 is None else b - matvec(x0)
+    if n is None:
+        n = rmatvec(b).shape[-1]
+    beta0 = unorm(b_eff)
+    tol = torch.clamp_min(rtol * beta0, atol)
+    u = _normalize(b_eff, col(beta0))
+    v = rmatvec(u)
+    alpha0 = torch.linalg.vector_norm(v, dim=-1)
+    v = _normalize(v, col(alpha0))
+    arnorm0 = alpha0 * beta0
+    artol = rtol * arnorm0 + atol
+
+    x = torch.zeros(b.shape[:1] + (n,), dtype=b.dtype, device=b.device)
+    w, alpha, phibar, rhobar = v, alpha0, beta0, alpha0
+    rnorm, arnorm = beta0, arnorm0
+    iters = syncs = 0
+    while iters < maxiter:
+        syncs += 1
+        active = ((rnorm > tol) & (arnorm > artol)).to(torch.int32)
+        if not bool((lock(active) > 0).any()):
+            break
+        u = matvec(v) - col(alpha) * u
+        beta = unorm(u)
+        u = _normalize(u, col(beta))
+        v = rmatvec(u) - col(beta) * v
+        alpha = torch.linalg.vector_norm(v, dim=-1)
+        v = _normalize(v, col(alpha))
+        rho = torch.sqrt(rhobar * rhobar + beta * beta)
+        rho = torch.where(rho > 0, rho, 1.0)
+        c = rhobar / rho
+        s = beta / rho
+        theta = s * alpha
+        rhobar = -c * alpha
+        phi = c * phibar
+        phibar = s * phibar
+        x = x + col(phi / rho) * w
+        w = v - col(theta / rho) * w
         rnorm = torch.abs(phibar)
         arnorm = torch.abs(phibar * alpha * c)
         iters += 1

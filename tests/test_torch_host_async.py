@@ -93,10 +93,25 @@ class TestRejects:
         with pytest.raises(ValueError, match="preconditioning"):
             tha.host_async_solve(op, b, inner=ms.InnerConfig(pc="jacobi"))
 
-    def test_intra_needs_the_sharded_backend(self):
+    def test_intra_needs_the_sharded_backend(self, monkeypatch):
+        """``intra > 1`` runs each block's sweeps on the sharded backend
+        (an ``intra``-shard sub-mesh); what that backend cannot take is
+        rejected with the JAX package's errors."""
         op, b = _problem(16, 16)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tha.host_async_solve(op, b, intra=2)
+        with pytest.raises(ValueError, match="no minimization"):
+            tha.host_async_solve(op, b, intra=2, minimization="local")
+        with pytest.raises(ValueError, match="not divisible"):
+            tha.host_async_solve(op, b, intra=3)
+        real, built = tha._sharded_sweep, []
+
+        def spy(opcfg, intra, inner, device):
+            built.append(intra)
+            return real(opcfg, intra, inner, device)
+
+        monkeypatch.setattr(tha, "_sharded_sweep", spy)
+        res = tha.host_async_solve(op, b, intra=2, rtol=1e-2,
+                                   join_timeout_s=60)
+        assert built == [2, 2] and res.converged
 
     def test_devices_one_per_block(self):
         op, b = _problem(8, 8)

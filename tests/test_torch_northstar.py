@@ -294,7 +294,13 @@ class TestBoundary:
             "strip3d",
             # slice 9
             "host_async_solve", "staged_multisplit_solve", "launch_net_async",
-            "net_async_block_solve"}
+            "net_async_block_solve",
+            # slice 10
+            "Mesh", "make_mesh", "make_tiled_mesh", "ShardedPoisson2D",
+            "ShardedPoisson3D", "sharded_multisplit_solve",
+            "sharded_gmres_solve", "sharded_mgpcg_solve",
+            "sharded_df_northstar", "sharded_df_northstar_fused",
+            "tiled_multisplit_solve"}
 
     def test_chip_smoke_refuses_without_a_card(self, tmp_path):
         assert not torch.cuda.is_available()

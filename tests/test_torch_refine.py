@@ -105,8 +105,17 @@ class TestDf64:
         np.testing.assert_allclose(
             float(tdf.scaled_norm(torch.from_numpy(tiny), axes=None)),
             float(jdf.scaled_norm(jnp.asarray(tiny))), rtol=1e-6)
-        with pytest.raises(NotImplementedError, match="mesh"):
+        # over mesh axes: the mesh is required, and on a one-shard mesh
+        # the norm is the unsharded one (JAX's, to the same rtol)
+        with pytest.raises(ValueError, match="mesh"):
             tdf.scaled_norm(torch.from_numpy(tiny), axes="block")
+        mesh = port.make_mesh(1, 1, device="cpu")
+        sharded = tdf.scaled_norm(torch.from_numpy(tiny)[None, None],
+                                  axes=("block", "intra"), mesh=mesh)
+        assert sharded.shape == (1, 1)
+        np.testing.assert_allclose(
+            float(sharded[0, 0]), float(jdf.scaled_norm(jnp.asarray(tiny))),
+            rtol=1e-6)
 
     def test_df_residual_for_rejects(self):
         with pytest.raises(TypeError, match="Stencil2D/Stencil3D"):
