@@ -124,20 +124,19 @@ def _sharded_sweep(opcfg, intra: int, inner: InnerConfig, device):
     from medane_tchakorom_ufc_thesis_repository_tpu_torch.parallel.mesh import (
         Mesh,
     )
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.parallel.sharded import (
+        _add_rows,
+        strip_halos,
+    )
 
     sub = Mesh(("intra",), (intra,), device=device)
-    up = [(i, i + 1) for i in range(intra - 1)]
-    dn = [(i, i - 1) for i in range(1, intra)]
+    halos, _ = strip_halos(sub)
     spec = ("intra",)
     shape = (opcfg.split_extent, opcfg.fdim)
 
     def diag_mv(g):
-        top = sub.ppermute(g[..., -1, :], "intra", up)
-        bot = sub.ppermute(g[..., 0, :], "intra", dn)
-        y = opcfg.interior_mv(g)
-        y[..., 0, :] += opcfg.off * top
-        y[..., -1, :] += opcfg.off * bot
-        return y
+        top, bot = halos(g)
+        return _add_rows(opcfg.interior_mv(g), opcfg.off, top, bot)
 
     def sweep(rhs_b, x_b):
         rhs = sub.shard(rhs_b.reshape(shape), spec)

@@ -4,8 +4,14 @@ the JAX package's ``parallel/probe.py``).
 The analog of the reference's start-up ping-pong
 (``comm_sync_measure_latency_between_two_nodes``,
 ``src/utils/comm.c:390-424``): chained ring ``ppermute`` rounds along one
-mesh axis, timed on the device with CUDA events on a card (the host clock
-on the CPU), so that the host's own pace does not enter the number.
+mesh axis, timed with CUDA events on a card (the host clock on the CPU).
+
+The events bound the span on the card's stream, not the device work
+alone.  On the ``'local'`` transport a round is a few small operations
+launched one by one from the host (the shifted copy, the zero fill, the
+multiply), and the stream idles between them, so the number is the host's
+launch pace more than a device latency.  On ``'dist'`` it also holds the
+process-group call and, under gloo, the staging through host memory.
 """
 
 from __future__ import annotations

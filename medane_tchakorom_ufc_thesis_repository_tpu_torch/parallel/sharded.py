@@ -170,15 +170,19 @@ def strip_halos(mesh, lead: str = "intra"):
     axis over ``('block', lead)``: the boundary rows from the neighbours
     in the same block, and from the neighbouring blocks (wrap within
     ``lead``, then shift across 'block'; zeros at the global Dirichlet
-    boundary)."""
-    ni, nb = mesh.shape[lead], mesh.shape["block"]
+    boundary).  A mesh without a 'block' axis has no ``cross``
+    (None)."""
+    ni = mesh.shape[lead]
     up, down = _pairs(ni)
-    bup, bdown = _pairs(nb)
 
     def intra(g):
         top = mesh.ppermute(g[..., -1, :], lead, up)
         bot = mesh.ppermute(g[..., 0, :], lead, down)
         return top, bot
+
+    if "block" not in mesh.shape:
+        return intra, None
+    bup, bdown = _pairs(mesh.shape["block"])
 
     def cross(g):
         top = mesh.ppermute(mesh.ppermute(g[..., -1, :], lead,

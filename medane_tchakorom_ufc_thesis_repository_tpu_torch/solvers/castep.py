@@ -74,15 +74,44 @@ def ca_gmres(
     cycles with masked updates and no host read.  Otherwise the loop test
     is read on the host once per cycle (``KrylovResult.syncs``).
 
-    ``axis_name``/``mesh``: a sharded solve (``_ca_gmres_sharded``)."""
+    ``axis_name``/``mesh``: a sharded solve.  ``b`` is then a flattened
+    shard stack ``(shards, n)``, each shard builds its rows of the basis,
+    every scalar is ``(shards,)``, and the norms and Gram matrices are
+    local partials followed by the mesh's ``psum``; for ``"column"`` the
+    panel least squares becomes the Cholesky of the ``psum``-reduced
+    ``(s, s)`` Gram of ``A K`` (the distributed rows admit no panel QR),
+    as in JAX."""
     if reductions not in ("column", "single"):
         raise ValueError(f"unknown reductions mode {reductions!r}")
-    if _sharded_b(b, axis_name, mesh):
-        return _ca_gmres_sharded(
-            matvec, b, x0, s=s, maxiter=maxiter, rtol=rtol, atol=atol,
-            shifts=shifts, lmin=lmin, lmax=lmax, reductions=reductions,
-            fixed_cycles=fixed_cycles, psum=make_reducer(axis_name, mesh))
+    sharded = _sharded_b(b, axis_name, mesh)
+    psum = make_reducer(axis_name, mesh)
     dtype, dev = b.dtype, b.device
+    if sharded:
+        def pnorm2(v):
+            return psum(torch.sum(v * v, dim=-1))
+
+        def dot(u, v):
+            return torch.sum(u * v, -1)
+
+        def gvec(M, v):                       # M v, batched over shards
+            return full_matmul(M, v[..., None])[..., 0]
+
+        def comb(y, V):                       # sum_j y_j V_j, per shard
+            return full_matmul(y[:, None, :], V)[:, 0]
+
+        def trace(M):
+            return torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
+
+        def col(t):
+            return t[:, None]
+    else:
+        def pnorm2(v):
+            return torch.sum(v * v)
+
+        dot, gvec, comb, trace = torch.dot, full_matmul, full_matmul, torch.trace
+
+        def col(t):
+            return t
     if shifts is None:
         if lmin is not None and lmax is not None:
             shifts = chebyshev_shifts(lmin, lmax, s)
@@ -93,7 +122,7 @@ def ca_gmres(
 
     x = torch.zeros_like(b) if x0 is None else x0
     r0 = b - matvec(x)
-    beta0 = torch.sqrt(torch.sum(r0 * r0))
+    beta0 = torch.sqrt(pnorm2(r0))
     tol = torch.clamp_min(rtol * beta0, atol)
     tiny = torch.finfo(dtype).tiny
     eps = torch.finfo(dtype).eps
@@ -103,145 +132,38 @@ def ca_gmres(
                 else 1.0)
     eye_s = torch.eye(s, dtype=dtype, device=dev)
 
+    def chol_solve(Gm, c):
+        jitter = eps * (trace(Gm) / s + 1.0)
+        ch, info = torch.linalg.cholesky_ex(Gm + jitter[..., None, None]
+                                            * eye_s)
+        return torch.cholesky_solve(c[..., None], ch)[..., 0], info
+
+    def commit(active, running, x, iters, rnorm, converged, x_new,
+               rnorm_new):
+        return (torch.where(col(active), x_new, x),
+                torch.where(running, iters + s, iters),
+                torch.where(active, rnorm_new, rnorm),
+                converged | (active & (rnorm_new <= tol)))
+
     def cycle_single(x, iters, rnorm, converged):
         r = b - matvec(x)
         W = [r]
         for th in shifts:
             W.append((matvec(W[-1]) - th * W[-1]) / capacity)
-        W = torch.stack(W)                                   # (s+1, n)
-        G = full_matmul(W, W.T)
+        W = torch.stack(W, dim=-2)                   # ([shards,] s+1, n)
+        G = psum(full_matmul(W, W.transpose(-2, -1)))
         # A w_j = capacity w_{j+1} + theta_j w_j  =>  C = B W
         B = (capacity * torch.eye(s, s + 1, dtype=dtype, device=dev).roll(
             1, dims=1) + theta[:, None] * torch.eye(s, s + 1, dtype=dtype,
                                                     device=dev))
         Gc = full_matmul(full_matmul(B, G), B.T)
-        c = full_matmul(B, G[:, 0])
-        jitter = eps * (torch.trace(Gc) / s + 1.0)
-        ch, info = torch.linalg.cholesky_ex(Gc + jitter * eye_s)
-        y = torch.cholesky_solve(c[:, None], ch)[:, 0]
-        x_new = x + full_matmul(y, W[:s])
-        rsq = G[0, 0] - 2.0 * torch.dot(y, c) + torch.dot(
-            y, full_matmul(Gc, y))
+        c = gvec(B, G[..., 0])
+        y, info = chol_solve(Gc, c)
+        x_new = x + comb(y, W[..., :s, :])
+        rsq = G[..., 0, 0] - 2.0 * dot(y, c) + dot(y, gvec(Gc, y))
         rnorm_new = torch.sqrt(torch.clamp_min(rsq, 0.0))
         # a basis beyond the working precision breaks the Cholesky:
         # freeze the iterate while the count runs on to maxiter
-        finite = torch.isfinite(rsq) & torch.isfinite(y).all() & (info == 0)
-        running = ~converged & (iters < maxiter)
-        active = running & finite
-        return (torch.where(active, x_new, x),
-                torch.where(running, iters + s, iters),
-                torch.where(active, rnorm_new, rnorm),
-                converged | (active & (rnorm_new <= tol)))
-
-    def cycle(x, iters, rnorm, converged):
-        r = b - matvec(x)
-        beta = torch.sqrt(torch.sum(r * r))
-        K = [r / torch.clamp_min(beta, tiny)]
-        sigmas = []
-        for th in shifts:
-            w = matvec(K[-1]) - th * K[-1]
-            sigma = torch.sqrt(torch.sum(w * w))
-            K.append(w / torch.clamp_min(sigma, tiny))
-            sigmas.append(sigma)
-        K = torch.stack(K)                                   # (s+1, n)
-        # A k_j = sigma_{j+1} k_{j+1} + theta_j k_j: the columns of A K_s
-        C = torch.stack(sigmas)[:, None] * K[1:] + theta[:, None] * K[:s]
-        q, rr = torch.linalg.qr(C.T, mode="reduced")         # (n,s),(s,s)
-        diag = torch.diagonal(rr)
-        safe = diag.abs() > eps * diag.abs().max()
-        rr = rr + torch.diag((~safe).to(dtype))
-        qtr = torch.where(safe, full_matmul(q.T, r), 0.0)
-        y = torch.linalg.solve_triangular(rr, qtr[:, None], upper=True)[:, 0]
-        x_new = x + full_matmul(y, K[:s])
-        res = r - full_matmul(y, C)
-        rnorm_new = torch.sqrt(torch.sum(res * res))
-        active = ~converged & (iters < maxiter)
-        return (torch.where(active, x_new, x),
-                torch.where(active, iters + s, iters),
-                torch.where(active, rnorm_new, rnorm),
-                converged | (active & (rnorm_new <= tol)))
-
-    body = cycle_single if reductions == "single" else cycle
-    state = (x, torch.zeros((), dtype=torch.int32, device=dev), beta0,
-             beta0 <= tol)
-    syncs = 0
-    if fixed_cycles:
-        for _ in range(-(-maxiter // s)):
-            state = body(*state)
-    else:
-        while True:
-            syncs += 1
-            if not bool(~state[3] & (state[1] < maxiter)):
-                break
-            state = body(*state)
-    x, iters, rnorm, converged = state
-    return KrylovResult(x=x, iters=iters, resnorm=rnorm, resnorm0=beta0,
-                        converged=converged, syncs=syncs)
-
-
-def _ca_gmres_sharded(matvec, b, x0, *, s, maxiter, rtol, atol, shifts, lmin,
-                      lmax, reductions, fixed_cycles, psum) -> KrylovResult:
-    """``ca_gmres`` on a flattened shard stack ``b`` of shape ``(shards,
-    n)``: the JAX ``axis_name`` form.  Each shard builds its rows of the
-    basis; the least squares runs on ``psum``-reduced Gram matrices, one
-    per cycle with ``reductions="single"`` (everything from the
-    ``(s+1, s+1)`` Gram of the capacity-scaled basis), or, for
-    ``"column"``, the ``(s, s)`` Gram of the normalized basis's ``A K``
-    columns (the distributed rows admit no panel QR); the small algebra
-    is replicated on every shard, batched over the shards."""
-    dtype, dev = b.dtype, b.device
-    nsh = b.shape[0]
-    if shifts is None:
-        if lmin is not None and lmax is not None:
-            shifts = chebyshev_shifts(lmin, lmax, s)
-        else:
-            shifts = [0.0] * s
-    shifts = [float(t) for t in list(shifts)[:s]]
-    theta = torch.tensor(shifts, dtype=dtype, device=dev)
-
-    def pnorm2(v):
-        return psum(torch.sum(v * v, dim=-1))
-
-    x = torch.zeros_like(b) if x0 is None else x0
-    r0 = b - matvec(x)
-    beta0 = torch.sqrt(pnorm2(r0))
-    tol = torch.clamp_min(rtol * beta0, atol)
-    tiny = torch.finfo(dtype).tiny
-    eps = torch.finfo(dtype).eps
-    capacity = ((lmax - lmin) / 4.0
-                if lmin is not None and lmax is not None and lmax > lmin
-                else 1.0)
-    eye_s = torch.eye(s, dtype=dtype, device=dev)
-
-    def chol_solve(Gm, c):
-        jitter = eps * (torch.diagonal(Gm, dim1=-2, dim2=-1).sum(-1) / s
-                        + 1.0)
-        ch, info = torch.linalg.cholesky_ex(Gm + jitter[:, None, None] * eye_s)
-        return torch.cholesky_solve(c[:, :, None], ch)[:, :, 0], info
-
-    def commit(active, running, x, iters, rnorm, converged, x_new, rnorm_new):
-        return (torch.where(active[:, None], x_new, x),
-                torch.where(running, iters + s, iters),
-                torch.where(active, rnorm_new, rnorm),
-                converged | (active & (rnorm_new <= tol)))
-
-    def cycle_single(x, iters, rnorm, converged):
-        r = b - matvec(x)
-        W = [r]
-        for th in shifts:
-            W.append((matvec(W[-1]) - th * W[-1]) / capacity)
-        W = torch.stack(W, dim=1)                            # (nsh, s+1, n)
-        G = psum(full_matmul(W, W.transpose(1, 2)))
-        B = (capacity * torch.eye(s, s + 1, dtype=dtype, device=dev).roll(
-            1, dims=1) + theta[:, None] * torch.eye(s, s + 1, dtype=dtype,
-                                                    device=dev))
-        Gc = full_matmul(full_matmul(B, G), B.T)
-        c = full_matmul(B, G[:, :, 0:1])[:, :, 0]
-        y, info = chol_solve(Gc, c)
-        x_new = x + full_matmul(y[:, None, :], W[:, :s])[:, 0]
-        rsq = (G[:, 0, 0] - 2.0 * torch.sum(y * c, -1)
-               + torch.sum(y * full_matmul(Gc, y[:, :, None])[:, :, 0], -1))
-        rnorm_new = torch.sqrt(torch.clamp_min(rsq, 0.0))
         finite = torch.isfinite(rsq) & torch.isfinite(y).all(-1) & (info == 0)
         running = ~converged & (iters < maxiter)
         return commit(running & finite, running, x, iters, rnorm, converged,
@@ -250,29 +172,38 @@ def _ca_gmres_sharded(matvec, b, x0, *, s, maxiter, rtol, atol, shifts, lmin,
     def cycle(x, iters, rnorm, converged):
         r = b - matvec(x)
         beta = torch.sqrt(pnorm2(r))
-        K = [r / torch.clamp_min(beta, tiny)[:, None]]
+        K = [r / col(torch.clamp_min(beta, tiny))]
         sigmas = []
         for th in shifts:
             w = matvec(K[-1]) - th * K[-1]
             sigma = torch.sqrt(pnorm2(w))
-            K.append(w / torch.clamp_min(sigma, tiny)[:, None])
+            K.append(w / col(torch.clamp_min(sigma, tiny)))
             sigmas.append(sigma)
-        K = torch.stack(K, dim=1)                            # (nsh, s+1, n)
-        C = (torch.stack(sigmas, dim=1)[:, :, None] * K[:, 1:]
-             + theta[:, None] * K[:, :s])
-        G = psum(full_matmul(C, C.transpose(1, 2)))
-        c = psum(full_matmul(C, r[:, :, None])[:, :, 0])
-        y, _ = chol_solve(G, c)
-        x_new = x + full_matmul(y[:, None, :], K[:, :s])[:, 0]
-        res = r - full_matmul(y[:, None, :], C)[:, 0]
+        K = torch.stack(K, dim=-2)                   # ([shards,] s+1, n)
+        # A k_j = sigma_{j+1} k_{j+1} + theta_j k_j: the columns of A K_s
+        C = (torch.stack(sigmas, dim=-1)[..., None] * K[..., 1:, :]
+             + theta[:, None] * K[..., :s, :])
+        if sharded:
+            G = psum(full_matmul(C, C.transpose(-2, -1)))
+            y, _ = chol_solve(G, psum(gvec(C, r)))
+        else:
+            q, rr = torch.linalg.qr(C.T, mode="reduced")     # (n,s),(s,s)
+            diag = torch.diagonal(rr)
+            safe = diag.abs() > eps * diag.abs().max()
+            rr = rr + torch.diag((~safe).to(dtype))
+            qtr = torch.where(safe, full_matmul(q.T, r), 0.0)
+            y = torch.linalg.solve_triangular(rr, qtr[:, None],
+                                              upper=True)[:, 0]
+        x_new = x + comb(y, K[..., :s, :])
+        res = r - comb(y, C)
         rnorm_new = torch.sqrt(pnorm2(res))
         active = ~converged & (iters < maxiter)
         return commit(active, active, x, iters, rnorm, converged, x_new,
                       rnorm_new)
 
     body = cycle_single if reductions == "single" else cycle
-    state = (x, torch.zeros(nsh, dtype=torch.int32, device=dev), beta0,
-             beta0 <= tol)
+    state = (x, torch.zeros(beta0.shape, dtype=torch.int32, device=dev),
+             beta0, beta0 <= tol)
     syncs = 0
     if fixed_cycles:
         for _ in range(-(-maxiter // s)):

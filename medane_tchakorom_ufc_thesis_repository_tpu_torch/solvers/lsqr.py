@@ -55,66 +55,26 @@ def lsqr(
     loop runs while any instance along it is active, the others iterating
     on unmasked (their divisions are guarded), as in JAX."""
     if _sharded_b(b, axis_name, mesh):
-        return _lsqr_sharded(matvec, rmatvec, b, x0, n, maxiter=maxiter,
-                             rtol=rtol, atol=atol,
-                             psum=make_reducer(axis_name, mesh),
-                             lock=make_reducer(lockstep_axis, mesh))
-    dtype = b.dtype
-    b_eff = b if x0 is None else b - matvec(x0)
-    if n is None:
-        n = rmatvec(b).shape[0]
-    beta0 = _norm(b_eff)
-    tol = torch.clamp_min(rtol * beta0, atol)
-    u = _normalize(b_eff, beta0)
-    v = rmatvec(u)
-    alpha0 = torch.linalg.norm(v)
-    v = _normalize(v, alpha0)
-    arnorm0 = alpha0 * beta0
-    artol = rtol * arnorm0 + atol
+        psum = make_reducer(axis_name, mesh)
+        lock = make_reducer(lockstep_axis, mesh)
 
-    x = torch.zeros(n, dtype=dtype, device=b.device)
-    w, alpha, phibar, rhobar = v, alpha0, beta0, alpha0
-    rnorm, arnorm = beta0, arnorm0
-    iters = syncs = 0
-    while iters < maxiter:
-        syncs += 1
-        if not bool((rnorm > tol) & (arnorm > artol)):
-            break
-        u = matvec(v) - alpha * u
-        beta = _norm(u)
-        u = _normalize(u, beta)
-        v = rmatvec(u) - beta * v
-        alpha = torch.linalg.norm(v)
-        v = _normalize(v, alpha)
-        rho = torch.sqrt(rhobar * rhobar + beta * beta)
-        rho = torch.where(rho > 0, rho, 1.0)
-        c = rhobar / rho
-        s = beta / rho
-        theta = s * alpha
-        rhobar = -c * alpha
-        phi = c * phibar
-        phibar = s * phibar
-        x = x + (phi / rho) * w
-        w = v - (theta / rho) * w
-        rnorm = torch.abs(phibar)
-        arnorm = torch.abs(phibar * alpha * c)
-        iters += 1
-    if x0 is not None:
-        x = x0 + x
-    return KrylovResult(x=x, iters=iters, resnorm=rnorm, resnorm0=beta0,
-                        converged=(rnorm <= tol) | (arnorm <= artol),
-                        syncs=syncs)
+        def unorm(vec):
+            return torch.sqrt(psum(torch.sum(vec * vec, dim=-1)))
 
+        def vnorm(vec):
+            return torch.linalg.vector_norm(vec, dim=-1)
 
-def _lsqr_sharded(matvec, rmatvec, b, x0, n, *, maxiter, rtol, atol, psum,
-                  lock) -> KrylovResult:
-    """``lsqr`` on a shard stack: every scalar is ``(shards,)``."""
-    def unorm(vec):
-        return torch.sqrt(psum(torch.sum(vec * vec, dim=-1)))
+        def col(t):
+            return t[:, None]
 
-    def col(t):
-        return t[:, None]
+        def going(live):
+            return bool((lock(live.to(torch.int32)) > 0).any())
+        lead = b.shape[:1]
+    else:
+        unorm, vnorm, going, lead = _norm, torch.linalg.norm, bool, ()
 
+        def col(t):
+            return t
     b_eff = b if x0 is None else b - matvec(x0)
     if n is None:
         n = rmatvec(b).shape[-1]
@@ -122,25 +82,24 @@ def _lsqr_sharded(matvec, rmatvec, b, x0, n, *, maxiter, rtol, atol, psum,
     tol = torch.clamp_min(rtol * beta0, atol)
     u = _normalize(b_eff, col(beta0))
     v = rmatvec(u)
-    alpha0 = torch.linalg.vector_norm(v, dim=-1)
+    alpha0 = vnorm(v)
     v = _normalize(v, col(alpha0))
     arnorm0 = alpha0 * beta0
     artol = rtol * arnorm0 + atol
 
-    x = torch.zeros(b.shape[:1] + (n,), dtype=b.dtype, device=b.device)
+    x = torch.zeros(lead + (n,), dtype=b.dtype, device=b.device)
     w, alpha, phibar, rhobar = v, alpha0, beta0, alpha0
     rnorm, arnorm = beta0, arnorm0
     iters = syncs = 0
     while iters < maxiter:
         syncs += 1
-        active = ((rnorm > tol) & (arnorm > artol)).to(torch.int32)
-        if not bool((lock(active) > 0).any()):
+        if not going((rnorm > tol) & (arnorm > artol)):
             break
         u = matvec(v) - col(alpha) * u
         beta = unorm(u)
         u = _normalize(u, col(beta))
         v = rmatvec(u) - col(beta) * v
-        alpha = torch.linalg.vector_norm(v, dim=-1)
+        alpha = vnorm(v)
         v = _normalize(v, col(alpha))
         rho = torch.sqrt(rhobar * rhobar + beta * beta)
         rho = torch.where(rho > 0, rho, 1.0)

@@ -98,11 +98,11 @@ def run_ranks(cmds: Sequence[Sequence[str]], env: dict, *,
 
 
 def launch(worker_args: Sequence[str], *, num_processes: int = 2,
-           device: str = "cpu", backend: str = "gloo",
+           device: str = "cuda", backend: str = "gloo",
            timeout_s: float = 600.0, port: Optional[int] = None) -> List[dict]:
     """Start ``num_processes`` ranks running ``worker_main`` with the solve
-    flags ``worker_args`` on ``device`` ('cpu' or 'cuda') over
-    ``backend``; returns each rank's parsed JSON line.  One retry on a
+    flags ``worker_args`` on ``device`` ('cuda', the default, or 'cpu')
+    over ``backend``; returns each rank's parsed JSON line.  One retry on a
     fresh port covers the race of ``free_port`` with another process
     binding the probed port first."""
     env = scrubbed_env(device)
@@ -302,6 +302,9 @@ def worker_main(argv: Optional[Sequence[str]] = None) -> int:
     if args.probe_rounds:
         out["collective_block"] = measure_collective_latency(
             mesh, "block", rounds=args.probe_rounds)
+    # every rank leaves its last collective before any tears down the
+    # group; a gloo group left to the interpreter's exit can abort it
+    dist.barrier()
     dist.destroy_process_group()
     print(json.dumps(out), flush=True)
     return 0

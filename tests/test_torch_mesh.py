@@ -215,6 +215,8 @@ out = {"local_shape": list(mesh.local_shape),
        "gather_block": mesh.all_gather(x, "block").tolist(),
        "index": mesh.shard_index().tolist(),
        "unshard": mesh.unshard(x, (("block", "intra"),), (8, 3)).tolist()}
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
 print(json.dumps(out), flush=True)
 """
 
