@@ -190,7 +190,23 @@ from this checkout and nothing of JAX, and:
    row-sharded AIJ (kernel H) and block-ELL (kernel I) solves, the
    collective latency, 2 ``'dist'`` gloo ranks on the card (SM 1024^2 f64,
    sweeps equal to the local mesh's) and ``dryrun_multichip(8)``.  Each run
-   counted once: the kernels its path needs must launch.
+   counted once: the kernels its path needs must launch.  The shard-stack
+   kernels are timed beside one PyTorch call each where there is one
+   (``conv2d``/``conv3d``, ``bmm``, ``baddbmm``, the sparse CSR and BSR
+   products).
+
+13. cli phase (``cli_phase``): the port's command line
+   (``utils/cli.main(argv + ["--json"])``) on the card at the widths the
+   reference and the JAX CLI document: AM 1024^2 (staleness 2, the
+   reference's default experiment), SMSM_GLOBAL 4096^2, MGPCG 3D 256^3 to
+   1e-8 in f32 (double-float refinement), SM 3D 64^3 to 1e-5, GMRES with
+   ``--pc-type jacobi`` on a structureless n = 2^20 ``--matrix`` (the
+   stacked ELL route, kernel H) and the same on ``--backend sharded``
+   (kernel I), SM sharded on ``(2, 4)`` 1024^2 in f64 and SMSM_GLOBAL
+   1024^2 with ``--flame``.  Each run is counted once (its kernels must
+   launch), its counts must equal the same configuration called directly,
+   its ``rel_rnorm`` and the direct call's f64 residual must lie under the
+   rtol; then one ``bulk.run_one`` subprocess on ``cuda:0``.
 
 Any failure raises.  The line before the last is a JSON object of the
 kernels; the last line is ``{"ok": true, "device": {...}}``.
@@ -199,6 +215,7 @@ kernels; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -259,7 +276,7 @@ ENTRIES = [
 PHASES = ("kernels", "kernels2d", "fusedkernels", "coarse", "sparse",
           "northstar",
           "fused", "northstar2d", "cycle", "golden", "thesis", "inner",
-          "calibration", "api", "stacked", "async", "sharded")
+          "calibration", "api", "stacked", "async", "sharded", "cli")
 # the card's published peaks: memory rate, and f32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = 67e12
@@ -381,6 +398,8 @@ def main() -> None:
             async_phase(torch, port, dev, card)
         elif phase == "sharded":
             sharded_phase(torch, port, dev, card)
+        elif phase == "cli":
+            cli_phase(torch, port, dev, card)
         log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
     if only:
         log(f"partial run of {todo}: no result lines")
@@ -2979,7 +2998,9 @@ def sharded_counted(torch, build, label, run, need, reps: int = 1):
 def shard_kernels(torch, dev, card, aij, bsr_op) -> None:
     """Every kernel of the sharded paths against its plain version at the
     shard-stack shapes of the runs below, each timed beside its plain
-    version and its bound."""
+    version, its bound and, where one PyTorch call computes the same
+    function, that call (``conv2d``/``conv3d``, ``bmm``, ``baddbmm``, the
+    sparse CSR and BSR products)."""
     from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import coarse, csr
     from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import bsr as bk
     from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import fused
@@ -2999,7 +3020,8 @@ def shard_kernels(torch, dev, card, aij, bsr_op) -> None:
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=dtype)
 
-    def held(name, shape, kernel, plain, tol, least, dot_floor=0.0):
+    def held(name, shape, kernel, plain, tol, least, dot_floor=0.0,
+             library=None):
         out, ref = kernel(), plain()
         torch.cuda.synchronize()
         if isinstance(out, tuple):
@@ -3007,9 +3029,12 @@ def shard_kernels(torch, dev, card, aij, bsr_op) -> None:
         err = check(torch, f"sharded {name} {shape}", out, ref, tol,
                     dot_floor)
         ms, pms = median_ms(torch, kernel), median_ms(torch, plain)
+        lib = (None if library is None
+               else library_ms(torch, library, f"sharded {name} {shape}"))
         log(f"sharded kernel {name} {shape} [{card}]: max abs err {err:.3e}; "
-            f"{ms:.4f} ms, plain {pms:.4f} ms, bound {least['bound_ms']:.4f} "
-            f"ms ({least['bound_by']})")
+            f"{ms:.4f} ms, plain {pms:.4f} ms, library "
+            f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+            f"{least['bound_ms']:.4f} ms ({least['bound_by']})")
 
     # kernel E: the 4096^2 strips' shard stack, its s=4 panel, the 1024^2
     # f64 shards
@@ -3021,7 +3046,8 @@ def shard_kernels(torch, dev, card, aij, bsr_op) -> None:
         held(name, f"{dtype} {shape}",
              lambda: e.stencil2d_apply(x, diag=4.0, off=-1.0, panel=panel),
              lambda: e.stencil2d_apply_plain(x, diag=4.0, off=-1.0), "bits",
-             bound(2 * nbytes(x), 9 * x.numel()))
+             bound(2 * nbytes(x), 9 * x.numel()),
+             library=stencil_conv(torch, x, 4.0, -1.0))
     # kernel A: a 64^3 shard and a 256^3 shard, kinds mv and jacobi
     for shape in ((8, 64, 64), (32, 256, 256)):
         x, b = rnd(shape), rnd(shape)
@@ -3029,7 +3055,8 @@ def shard_kernels(torch, dev, card, aij, bsr_op) -> None:
              lambda: k.stencil3d_apply(x, kind="mv", diag=DIAG, off=OFF),
              lambda: k.stencil3d_apply_plain(x, kind="mv", diag=DIAG,
                                              off=OFF), "f32",
-             bound(2 * nbytes(x), 13 * x.numel()))
+             bound(2 * nbytes(x), 13 * x.numel()),
+             library=stencil_conv(torch, x[None], DIAG, OFF))
     held("stencil3d_apply[jacobi]", shape,
          lambda: k.stencil3d_apply(x, b, kind="jacobi", diag=DIAG, off=OFF,
                                    omega=OMEGA),
@@ -3064,26 +3091,41 @@ def shard_kernels(torch, dev, card, aij, bsr_op) -> None:
              * torch.linalg.vector_norm(w.double(), dim=-1)[:, None])
     held("mdot", tuple(V.shape), lambda: fused.mdot(V, w, 21),
          lambda: fused.mdot_plain(V, w, 21), "dot",
-         bound(nbytes(V, w), 2 * V.numel()), 1e-6 * norms)
+         bound(nbytes(V, w), 2 * V.numel()), 1e-6 * norms,
+         library=lambda: torch.bmm(V, w[:, :, None]))
     held("maxpy", tuple(V.shape), lambda: fused.maxpy(V, a, w, 21),
          lambda: fused.maxpy_plain(V, a, w, 21), "f32",
-         bound(nbytes(V, w) + nbytes(w), 2 * V.numel()))
+         bound(nbytes(V, w) + nbytes(w), 2 * V.numel()),
+         library=lambda: torch.baddbmm(w[:, None, :], a[:, None, :], V))
     # kernel H: the 8 row strips of the n = 2^22 matrix (one launch over
     # the process's strips) against the gathered x
     ip, ix, dv, part = aij.rows(0, aij.ndev)
     xa = rnd((aij.n,))
+    a_lib = torch.sparse_csr_tensor(ip, ix, dv, size=(aij.n, aij.n))
     held("csr_mv", f"{aij.n} rows, {dv.numel()} nonzeros",
          lambda: csr.csr_mv(ip, ix, dv, xa, aij.n, aij.n, partition=part),
          lambda: csr.csr_mv_plain(ip, ix, dv, xa, aij.n, aij.n), "f32",
-         bound(nbytes(ip, ix, dv, xa, xa), 2 * dv.numel()))
+         bound(nbytes(ip, ix, dv, xa, xa), 2 * dv.numel()),
+         library=lambda: a_lib @ xa)
+    del a_lib
     # kernel I: the block-ELL strips of the sharded general solve
     idx = bsr_op.idx.reshape(-1, bsr_op.idx.shape[-1]).contiguous()
     val = bsr_op.val.reshape(-1, *bsr_op.val.shape[2:]).contiguous()
     xb = rnd((bsr_op.n,))
+    nbr, width, c = idx.shape[0], idx.shape[1], val.shape[-1]
+    # torch's BSR tensor holds the blocks untransposed; a padded slot is a
+    # zero block
+    b_lib = torch.sparse_bsr_tensor(
+        torch.arange(0, nbr * width + 1, width, device=dev,
+                     dtype=torch.int32), idx.reshape(-1),
+        val.reshape(-1, c, c).transpose(1, 2).contiguous(),
+        size=(nbr * c, bsr_op.n))
     held("bsr_mv", f"{tuple(val.shape)}",
          lambda: bk.bsr_mv(idx, val, xb, bsr_op.n, bsr_op.n),
          lambda: bk.bsr_mv_plain(idx, val, xb, bsr_op.n, bsr_op.n), "f32",
-         bound(nbytes(idx, val, xb, xb), 2 * val.numel()))
+         bound(nbytes(idx, val, xb, xb), 2 * val.numel()),
+         library=lambda: b_lib @ xb[:, None])
+    del b_lib
 
 
 def sharded_bsr_matrix(np, sp):
@@ -3362,6 +3404,274 @@ def sharded_phase(torch, port, dev, card) -> None:
     dryrun_multichip(8, device=dev)
     log(f"dryrun_multichip(8) on the card [{card}]: "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+
+# ---------------------------------------------------------------------------
+# CLI phase
+# ---------------------------------------------------------------------------
+
+CLI_MATRIX_N = 1 << 20        # the structureless matrix of the --matrix runs
+
+
+def cli_phase(torch, port, dev, card) -> None:
+    """The port's command line (``utils/cli.py``) on the card: each run
+    through ``main(argv + ["--json"])`` in this process, counted once (the
+    kernels its path needs must launch), beside the same configuration
+    called directly (``config_from_args`` gives the ``RunConfig``; then
+    ``multisplit_solve``, ``gmres``, ``df_iterative_refinement`` around
+    ``cg``, the sharded solves, ``staged_multisplit_solve``): sweeps,
+    cycles or iterations must be equal (the CLI adds no arithmetic), the
+    record's ``rel_rnorm`` under its rtol and the direct call's residual,
+    recomputed in f64 on the card (on the host against the matrix for
+    ``--matrix``), under it too.  Then one ``bulk.run_one`` subprocess on
+    the card, whose record must say ``cuda:0``.  Prints each run's wall
+    time: the CLI's whole call (set-up included), its solve
+    (``elapsed_s``) and the direct call's solve, each ending in a
+    synchronisation."""
+    import contextlib
+    import io
+    import warnings
+
+    import numpy as np
+    import scipy.sparse as sp
+
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.staged import (
+        staged_multisplit_solve,
+    )
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import build
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import stencil3d as k
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.parallel.general import (
+        shard_general_from_coo,
+        sharded_general_solve,
+    )
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.utils import bulk, cli
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.utils.profiling import (
+        PhaseTimer,
+    )
+
+    e_mv, e_spmm = "stencil2d_apply[mv]", "stencil2d_apply[spmm]"
+    fg = ("mdot", "maxpy")
+    matrix = ROOT / "build" / "cli_structureless.npz"
+    flame = ROOT / "build" / "cli_flame.html"
+    matrix.parent.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    A = structureless_spd(np, sp, CLI_MATRIX_N)
+    sp.save_npz(matrix, A, compressed=False)
+    log(f"cli: structureless n = 2^20 matrix ({A.nnz} nonzeros) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ones = np.ones(A.shape[0])
+    b_host = A @ ones
+
+    def timer():
+        """Seconds on the host clock after the card's queued work."""
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def cfg_of(argv):
+        return cli.config_from_args(cli.build_parser().parse_args(argv))
+
+    def multisplit(cfg, solver=port.multisplit_solve, **extra):
+        op = (port.block_poisson2d(cfg.m, cfg.n, cfg.nblocks) if cfg.dim == 2
+              else port.block_poisson3d(cfg.m, cfg.n, cfg.nz, cfg.nblocks))
+        b = port.rhs_ones(op, torch.float32 if cfg.dtype == "float32"
+                          else torch.float64, dev)
+        t0 = timer()
+        res = solver(
+            op, b, schedule=cfg.schedule,
+            staleness=cfg.staleness if cfg.schedule == "async" else 1,
+            minimization=cfg.minimization, s=cfg.s,
+            inner=cfg.inner_config(), outer=cfg.outer_config(),
+            rtol=cfg.rtol, atol=cfg.atol, maxiter=cfg.maxiter,
+            min_convergence_count=cfg.min_convergence_count, **extra)
+        t = timer() - t0
+        return ((res.sweeps, res.cycles), residual_f64(torch, op, res.x, b),
+                t)
+
+    def sharded_sm(cfg):
+        mesh = port.make_mesh(cfg.nblocks, cfg.intra, device=dev)
+        opcfg = port.ShardedPoisson2D(cfg.m, cfg.n)
+        b = port.rhs_ones(port.block_poisson2d(cfg.m, cfg.n), torch.float64,
+                          dev)
+        t0 = timer()
+        res = port.sharded_multisplit_solve(
+            mesh, opcfg, b.reshape(cfg.m, cfg.n), rtol=cfg.rtol,
+            atol=cfg.atol, maxiter=cfg.maxiter, inner=cfg.inner_config(),
+            outer=cfg.outer_config(),
+            min_convergence_count=cfg.min_convergence_count)
+        t = timer() - t0
+        return ((res.sweeps, res.cycles), residual_f64(torch, opcfg, res.x, b),
+                t)
+
+    def mgpcg_df(cfg):
+        gop = port.poisson3d(cfg.m, cfg.n, cfg.nz)
+        M = port.mg_preconditioner(gop)
+        b = port.rhs_ones(port.block_poisson3d(cfg.m, cfg.n, cfg.nz),
+                          torch.float32, dev).reshape(gop.dims)
+        pcg = []
+
+        def solve32(r):
+            res = port.cg(gop.mv, r, maxiter=cfg.inner_maxiter,
+                          rtol=cfg.inner_rtol, precond=M)
+            pcg.append(int(res.iters))
+            return res.x
+
+        t0 = timer()
+        res = port.df_iterative_refinement(
+            gop, None, solve32, rtol=cfg.rtol,
+            b_df=(b, torch.zeros_like(b)), return_host=False)
+        t = timer() - t0
+        x64 = res.x[0].double() + res.x[1].double()
+        b64 = k.stencil3d_apply_plain(torch.ones_like(x64), kind="mv",
+                                      diag=DIAG, off=OFF)
+        rel = float(torch.linalg.vector_norm(b64 - k.stencil3d_apply_plain(
+            x64, kind="mv", diag=DIAG, off=OFF))
+            / torch.linalg.vector_norm(b64))
+        log(f"cli MGPCG direct: passes {res.passes}, PCG {pcg}, max|x-1| "
+            f"{float((x64 - 1).abs().max()):.3e}")
+        return (res.passes,), rel, t
+
+    def host_rel(x):
+        x = x.double().cpu().numpy().reshape(-1)
+        return float(np.linalg.norm(b_host - A @ x) / np.linalg.norm(b_host))
+
+    def gmres_matrix(cfg):
+        coo = A.tocoo()
+        a_ii, a_ic = port.block_split_ell(coo.row, coo.col, coo.data, A.shape,
+                                          nblocks=cfg.nblocks,
+                                          dtype=torch.float32, device=dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            op = port.as_stacked_routed_operator(
+                port.StackedELLOperator(a_ii=a_ii, a_ic=a_ic))
+        if type(op).__name__ != "StackedELLOperator":
+            raise AssertionError(f"cli --matrix: routed to "
+                                 f"{type(op).__name__}, not the stacked ELL")
+        d = np.asarray(A.diagonal(), np.float64)
+        dinv = torch.as_tensor(1.0 / d, dtype=torch.float32, device=dev)
+        b = torch.as_tensor(b_host, dtype=torch.float32, device=dev)
+        t0 = timer()
+        res = port.gmres(lambda v: op.global_mv(dinv * v), b,
+                         restart=cfg.inner_restart, maxiter=cfg.maxiter,
+                         rtol=cfg.rtol)
+        x = dinv * res.x
+        t = timer() - t0
+        return (int(res.iters),), host_rel(x), t
+
+    def sharded_matrix(cfg):
+        mesh = port.make_mesh(cfg.nblocks, cfg.intra, device=dev)
+        coo = A.tocoo()
+        d = np.asarray(A.diagonal(), np.float64)
+        gop = shard_general_from_coo(coo.row, coo.col, coo.data / d[coo.col],
+                                     A.shape[0], mesh.size,
+                                     dtype=torch.float32, device=dev)
+        b = torch.as_tensor(b_host, dtype=torch.float32, device=dev)
+        unscale = torch.as_tensor(1.0 / d, dtype=torch.float32, device=dev)
+        t0 = timer()
+        res = sharded_general_solve(mesh, gop, b, method="gmres",
+                                    restart=cfg.inner_restart,
+                                    maxiter=cfg.maxiter, rtol=cfg.rtol)
+        x = unscale * res.x.reshape(-1)
+        t = timer() - t0
+        return (int(res.iters),), host_rel(x), t
+
+    def staged(cfg):
+        return multisplit(cfg, staged_multisplit_solve, timer=PhaseTimer())
+
+    runs = [
+        # (label, argv, direct call, record fields to compare, kernels)
+        ("AM 1024^2 staleness 2", ["--alg", "AM", "--m", "1024", "--n",
+                                   "1024", "--rtol", "1e-3", "--staleness",
+                                   "2"], multisplit, ("sweeps", "cycles"),
+         (e_mv, *fg)),
+        ("SMSM_GLOBAL 4096^2", ["--alg", "SMSM_GLOBAL", "--m", "4096", "--n",
+                                "4096", "--rtol", "1e-3"], multisplit,
+         ("sweeps", "cycles"), (e_mv, e_spmm, *fg)),
+        ("MGPCG 3D 256^3 rtol 1e-8 f32", ["--alg", "MGPCG", "--dim", "3",
+                                          "--m", "256", "--n", "256", "--nz",
+                                          "256", "--rtol", "1e-8"], mgpcg_df,
+         ("refine_passes",),
+         ("stencil3d_apply[mv]", "stencil3d_residual_restrict",
+          "stencil3d_prolong_jacobi", "stencil3d_df_residual",
+          "stencil3d_chebyshev")),
+        ("SM 3D 64^3 rtol 1e-5", ["--alg", "SM", "--dim", "3", "--m", "64",
+                                  "--n", "64", "--nz", "64", "--rtol",
+                                  "1e-5"], multisplit, ("sweeps", "cycles"),
+         ("stencil3d_apply[mv]", *fg)),
+        ("GMRES --matrix n=2^20 --pc-type jacobi",
+         ["--alg", "GMRES", "--matrix", str(matrix), "--pc-type", "jacobi"],
+         gmres_matrix, ("sweeps",), ("csr_mv", *fg)),
+        ("GMRES --matrix n=2^20 --pc-type jacobi sharded (2, 4)",
+         ["--alg", "GMRES", "--matrix", str(matrix), "--pc-type", "jacobi",
+          "--backend", "sharded", "--nblocks", "2", "--intra", "4"],
+         sharded_matrix, ("sweeps",), ("bsr_mv", *fg)),
+        ("SM sharded (2, 4) 1024^2 f64", ["--alg", "SM", "--backend",
+                                          "sharded", "--nblocks", "2",
+                                          "--intra", "4", "--m", "1024",
+                                          "--n", "1024", "--dtype",
+                                          "float64"], sharded_sm,
+         ("sweeps", "cycles"), (e_mv, *fg)),
+        ("SMSM_GLOBAL 1024^2 --flame", ["--alg", "SMSM_GLOBAL", "--m", "1024",
+                                        "--n", "1024", "--flame", str(flame)],
+         staged, ("sweeps", "cycles"), (e_mv, e_spmm, *fg)),
+    ]
+    for label, argv, direct, fields, need in runs:
+        cfg = cfg_of(argv)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([*argv, "--json"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        counts = build.launch_counts()
+        rec = json.loads(out.getvalue().strip().splitlines()[-1])
+        missing = [m for m in need if counts.get(m, 0) == 0]
+        if missing:
+            raise AssertionError(f"cli {label}: kernels never launched: "
+                                 f"{missing}")
+        got, rel, direct_s = direct(cfg)
+        mine = tuple(rec[f] for f in fields)
+        log(f"cli {label} [{card}]: rc {rc}, {dict(zip(fields, mine))} "
+            f"(direct {dict(zip(fields, got))}), converged "
+            f"{rec['converged']}, record rel {rec['rel_rnorm']:.3e}, direct "
+            f"f64 rel {rel:.3e} (rtol {cfg.rtol}); wall: CLI call "
+            f"{cli_s:.2f} s, its solve {rec['elapsed_s']:.2f} s, direct "
+            f"solve {direct_s:.2f} s; device {rec['device']}; launches "
+            f"{counts}")
+        if rc != 0 or not rec["converged"] or rec.get("certified") is False:
+            raise AssertionError(f"cli {label}: rc {rc}, record {rec}")
+        if mine != tuple(got):
+            raise AssertionError(f"cli {label}: {mine} against the direct "
+                                 f"call's {tuple(got)}")
+        if not (rec["rel_rnorm"] <= cfg.rtol and rel <= cfg.rtol):
+            raise AssertionError(f"cli {label}: rel {rec['rel_rnorm']} / "
+                                 f"f64 {rel} above {cfg.rtol}")
+        if rec["device"] != str(dev):
+            raise AssertionError(f"cli {label}: ran on {rec['device']}")
+        if label.startswith("MGPCG") and not (
+                rec["refine_passes"] <= 3 and rec["error_vs_ones"] < 1e-5):
+            raise AssertionError(f"cli {label}: {rec}")
+    text = flame.read_text()
+    stages = ("I_Solver", "Exchange", "O_Solver", "Convergence")
+    if not all(st in text for st in stages):
+        raise AssertionError(f"cli --flame: {flame} lacks a stage of "
+                             f"{stages}")
+    log(f"cli --flame: {flame.name} ({len(text)} bytes) names {stages}")
+    del A
+    matrix.unlink()
+
+    t0 = time.perf_counter()
+    env = {"PYTHONPATH": os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    rec = bulk.run_one(["--alg", "SM", "--m", "256", "--n", "256"],
+                       timeout_s=300, env=env)
+    log(f"cli bulk.run_one SM 256^2 [{card}]: {rec} ("
+        f"{time.perf_counter() - t0:.1f} s)")
+    if not (rec.get("returncode") == 0 and rec.get("converged")
+            and rec.get("device") == "cuda:0"):
+        raise AssertionError(f"bulk.run_one on the card: {rec}")
 
 
 if __name__ == "__main__":

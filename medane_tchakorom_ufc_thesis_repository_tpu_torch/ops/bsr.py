@@ -61,7 +61,8 @@ def _check(indices, values, x, n_out: int, n_in: int) -> None:
 def bsr_mv_plain(indices: torch.Tensor, values: torch.Tensor,
                  x: torch.Tensor, n_out: int, n_in: int) -> torch.Tensor:
     """Plain version of ``bsr_mv``: pad ``x``, gather its blocks, one
-    batched contraction in full precision, cut ``y``."""
+    batched contraction in full precision, cut ``y``; ``y`` contiguous,
+    as the kernel writes it (kernels F and G take it as a panel)."""
     _check(indices, values, x, n_out, n_in)
     if (x.is_cuda and x.dtype == torch.float32
             and torch.backends.cuda.matmul.allow_tf32):
@@ -73,7 +74,7 @@ def bsr_mv_plain(indices: torch.Tensor, values: torch.Tensor,
     xb = F.pad(x, (0, ncb * bs - n_in)).reshape(x.shape[:-1] + (ncb, bs))
     g = xb[..., indices.long(), :]                 # (..., nbr, width, bs)
     y = torch.einsum("rwji,...rwj->...ri", values, g)
-    return y.reshape(x.shape[:-1] + (-1,))[..., :n_out]
+    return y.reshape(x.shape[:-1] + (-1,))[..., :n_out].contiguous()
 
 
 def bsr_mv(indices: torch.Tensor, values: torch.Tensor, x: torch.Tensor,

@@ -39,10 +39,19 @@ under both, to the bit.
 Collectives must stay in lockstep: every process runs the same sequence
 of them (inner solves take fixed cycle counts and termination flags are
 global reductions), or the group hangs.
+
+``Mesh.count_collectives()`` tallies the collectives called on a mesh,
+under JAX's HLO op names (``psum``/``pmax``/``pmean`` as ``all-reduce``,
+``ppermute`` as ``collective-permute``, ``all_gather`` as
+``all-gather``): calls, and bytes of one shard's result, as the compiled
+SPMD program's per-device shapes count them (``utils/collstats.py``).  It
+reads shapes only, and with no tally open costs one attribute test a
+call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 from typing import Dict, Optional, Sequence, Tuple
@@ -52,6 +61,10 @@ import torch
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.core.device import resolve
 
 TRANSPORTS = ("local", "dist")
+# the collective kinds of a tally: the JAX package's HLO op names
+# (utils/hlostats.py), so that records keep its keys
+COLLECTIVES = ("collective-permute", "all-reduce", "all-gather",
+               "reduce-scatter", "all-to-all")
 
 
 def _as_axes(axes) -> Tuple[str, ...]:
@@ -108,6 +121,7 @@ class Mesh:
                                 zip(self.global_shape, self.local_shape))
         self.proc_coords = self._coords(self.rank)
         self._groups: Dict[Tuple[str, ...], object] = {}
+        self._tally: Optional[Dict[str, Dict[str, int]]] = None
 
     # -- layout ------------------------------------------------------------
     @property
@@ -187,8 +201,33 @@ class Mesh:
         h.copy_(t)
         return h
 
+    # -- collective tally -----------------------------------------------------
+    @contextlib.contextmanager
+    def count_collectives(self):
+        """Tally the collectives called on this mesh inside the block:
+        yields ``{kind: {"count", "bytes"}}`` over ``COLLECTIVES``, filled
+        as they run.  ``bytes`` is one shard's result (the data dims of a
+        shard stack; an all-gather's whole gathered result), per call.  A
+        ``ppermute`` whose pairs move nothing between shards is not
+        counted, as XLA folds it away.  Tallies nest; the inner one
+        takes the calls."""
+        stats = {k: {"count": 0, "bytes": 0} for k in COLLECTIVES}
+        outer, self._tally = self._tally, stats
+        try:
+            yield stats
+        finally:
+            self._tally = outer
+
+    def _count(self, kind: str, x: torch.Tensor, shards: int = 1) -> None:
+        if self._tally is not None:
+            entry = self._tally[kind]
+            entry["count"] += 1
+            entry["bytes"] += (shards * math.prod(x.shape[self.ndim:])
+                               * x.element_size())
+
     # -- collectives ---------------------------------------------------------
     def _reduce(self, x: torch.Tensor, axes, op: str) -> torch.Tensor:
+        self._count("all-reduce", x)
         axes = _as_axes(axes)
         for a in sorted(axes, key=self._dim, reverse=True):
             d = self._dim(a)
@@ -222,6 +261,8 @@ class Mesh:
         """``lax.ppermute`` along ``axis``: the shard at index ``dst``
         receives what the shard at ``src`` holds, for each ``(src, dst)``;
         a shard that no pair sends to receives zeros."""
+        if any(src != dst for src, dst in pairs):
+            self._count("collective-permute", x)
         d = self._dim(axis)
         nloc = self.local_shape[d]
         base = self.proc_coords[d] * nloc
@@ -299,9 +340,11 @@ class Mesh:
         ``axis`` of a shard's own tensor) as a new axis at ``axis``, or
         concatenated along it when ``tiled``."""
         axes = tuple(sorted(_as_axes(axes), key=self._dim))
+        gd = [self._dim(a) for a in axes]
+        self._count("all-gather", x,
+                    math.prod(self.global_shape[d] for d in gd))
         full = self._full_axes(x, axes)
         k = self.ndim
-        gd = [self._dim(a) for a in axes]
         keep = [d for d in range(k) if d not in gd]
         y = full.permute(keep + gd + list(range(k, full.dim())))
         g = math.prod(self.global_shape[d] for d in gd)

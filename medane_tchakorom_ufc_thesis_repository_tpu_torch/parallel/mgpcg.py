@@ -239,11 +239,17 @@ def plan_sharded(opcfg, splits, *, nu: int = 2, min_size: int = 4,
 def _make_agglomerator(mesh, splits: Tuple[int, ...]):
     """``(gather, slice_local)``: a distributed grid gathered whole (one
     copy, on every process), and a whole grid cut back into this
-    process's tiles, in the tile ownership order of the mesh."""
+    process's tiles, in the tile ownership order of the mesh.  The gather
+    is JAX's: ``all_gather`` over the leading owners ('block' with
+    'intra' or 'ir'), then, tiled, over 'ic' (mesh-axis-major order is
+    the tile ownership order)."""
     spec = _grid_spec(mesh)
 
     def gather(g, dims):
-        return mesh.unshard(g, spec, dims)
+        full = mesh.all_gather(g, spec[0], axis=0, tiled=True)
+        if len(spec) > 1:
+            full = mesh.all_gather(full, spec[1], axis=1, tiled=True)
+        return mesh.local(full).reshape(dims)
 
     def slice_local(full):
         return mesh.shard(full, spec)
