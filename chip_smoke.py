@@ -49,6 +49,13 @@ from this checkout and nothing of JAX, and:
    paths' shapes (CUDA events, median of 20), beside the least time the
    card could take (bytes over 3.35 TB/s, operations over 67 TFLOP/s).
    Kernel A also in f64 at the small shapes, kernel E also in bf16.
+   Kernel A's kinds without a dot (mv, residual, jacobi, mv_cast) also on
+   a stack of three 37x24x130 grids, on a stack of three 9x10x64 grids
+   one value past 16 bytes and on the sharded paths' stacks of 8 tiles of
+   64^3 and 256^3, in every dtype pair and f64: one launch against the
+   plain version and bit for bit against a launch a grid; at 512^3
+   each timed kind is also replayed in a CUDA graph, its device time beside
+   its bound.
    Kernel J (PCG's fused direction update) at 512^3, the odd shape and
    4^3 in f32, bf16 and f64, with beta 0, negative, and read from a
    device tensor: p' must have the bits of ``z + beta * p``, and in f32
@@ -169,9 +176,9 @@ from this checkout and nothing of JAX, and:
 11. async phase, in f32 on 2D 1024^2 in 2 blocks at rtol 1e-3 with the
    default inner GMRES(30), maxiter 20: ``host_async_solve`` AM and
    AMAM_GLOBAL (s=4), one thread and one CUDA stream a block, each
-   converged and certified with the f64 residual under 1e-3, timed (AM
-   median of 3, AMAM_GLOBAL one run; the first counted: kernels E [mv], F,
-   G and, for AMAM_GLOBAL, E [spmm] must launch from the block threads),
+   converged and certified with the f64 residual under 1e-3, run and
+   timed once, that run counted (kernels E [mv], F, G and, for
+   AMAM_GLOBAL, E [spmm] must launch from the block threads),
    with the busy share of a 10-sweep window under the profiler;
    ``staged_multisplit_solve`` SMSM_GLOBAL bit-equal to ``smsm`` with its
    four stage shares; and ``launch_net_async`` with 2 processes on the
@@ -182,7 +189,11 @@ from this checkout and nothing of JAX, and:
 12. sharded phase (``sharded_phase``): the distribution layer on a
    ``(2, 4)`` ``'local'`` mesh on the card: every kernel of the sharded
    paths (E [mv]/[spmm], A mv/jacobi, B, C, M, F, G, H, I) held against
-   its plain version at the shard-stack shapes and timed; SMSM_GLOBAL 2D
+   its plain version at the shard-stack shapes and timed (kernel A on the
+   stacks of 8 tiles of 64^3 and 256^3 in one launch, bit for bit the
+   loop of a launch a tile, and timed in turns beside that loop,
+   ``conv3d`` over the stack and the bound, with events and as device
+   time in a CUDA graph); SMSM_GLOBAL 2D
    4096^2 f32 and 1024^2 f64 (sweeps equal to the stacked solve's) beside
    the stacked ``smsm``, AM 1024^2, sharded GMRES (f32) and CA-GMRES
    (s=16, f64) on 3D 64^3, the sharded north-star at 256^3 beside the single-device one (f64
@@ -282,6 +293,10 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = 67e12
 FULL = (512, 512, 512)
 ODD = (37, 24, 130)
+# kernel A's stacks of grids: of odd grids, and of grids whose nz is a
+# multiple of every type's vector, for a stack one value past 16 bytes
+ODD_STACK = (3, 37, 24, 130)
+OFFSET_STACK = (3, 9, 10, 64)
 ODD_EVEN = (38, 24, 130)   # kernels B and C need even dims
 TINY = (4, 4, 4)
 # kernel C's further shapes: 2^3, the cycle's last prolongation (8^3 from
@@ -591,6 +606,53 @@ def hold_jacobi_dot(torch, k, x, b, odt, what: str) -> None:
     check(torch, f"jacobi_dot dot, two launches {what}", d2, d1, "bits")
 
 
+STACK_KINDS = ("mv", "residual", "jacobi", "mv_cast")
+
+
+def stack_apply(k, kind, x, b, odt):
+    """Kernel A's kind ``kind`` (one without a dot) on ``x``, a grid or a
+    stack of grids: ``y``, or ``(y, cast x)`` for ``mv_cast``."""
+    if kind == "mv_cast":
+        return k.stencil3d_mv_cast(x, diag=DIAG, off=OFF, out_dtype=odt)
+    extras = (b,) if kind in ("residual", "jacobi") else ()
+    return k.stencil3d_apply(x, *extras, kind=kind, diag=DIAG, off=OFF,
+                             omega=OMEGA if kind == "jacobi" else None,
+                             out_dtype=odt)
+
+
+def stack_loop(torch, k, kind, x, b, odt):
+    """The same, a launch a grid of the stack, stacked after: what the
+    stacked 3D paths ran before kernel A took a stack."""
+    outs = [stack_apply(k, kind, x[g], b[g], odt) for g in range(x.shape[0])]
+    if kind == "mv_cast":
+        return tuple(torch.stack([o[i] for o in outs]) for i in range(2))
+    return torch.stack(outs)
+
+
+def hold_stack(torch, k, kind, x, b, odt, tol, what) -> float:
+    """Kernel A's kind on the ``(T, nx, ny, nz)`` stack ``x`` in one
+    launch: against its plain version (``tol``) and, bit for bit, against
+    the loop of one-grid launches.  Returns the largest difference from
+    the plain version."""
+    out = stack_apply(k, kind, x, b, odt)
+    loop = stack_loop(torch, k, kind, x, b, odt)
+    if kind == "mv_cast":
+        ref = k.stencil3d_mv_cast_plain(x, diag=DIAG, off=OFF, out_dtype=odt)
+    else:
+        extras = (b,) if kind in ("residual", "jacobi") else ()
+        ref = k.stencil3d_apply_plain(
+            x, *extras, kind=kind, diag=DIAG, off=OFF,
+            omega=OMEGA if kind == "jacobi" else None, out_dtype=odt)
+    torch.cuda.synchronize()
+    out, loop, ref = (o if isinstance(o, tuple) else (o,)
+                      for o in (out, loop, ref))
+    err = 0.0
+    for o, l, r in zip(out, loop, ref):
+        err = max(err, check(torch, f"{what} stack", o, r, tol))
+        check(torch, f"{what} stack against a launch a grid", o, l, "bits")
+    return err
+
+
 def kernel_phase(torch, k, dev) -> dict:
     torch.backends.cudnn.allow_tf32 = False     # the yardsticks in full f32
     dt = {"f32": torch.float32, "bf16": torch.bfloat16, "f64": torch.float64}
@@ -634,8 +696,10 @@ def kernel_phase(torch, k, dev) -> dict:
                            flops_per_point * inputs[0].numel()))
             if library is not None:
                 r["library_ms"] = library_ms(torch, library, name)
-            log(f"{name} {dts} 512^3: kernel {r['ms']:.3f} ms, plain "
-                f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            device = graph_ms(torch, kernel)
+            log(f"{name} {dts} 512^3: kernel {r['ms']:.3f} ms (device "
+                f"{device:.4f} ms, {r['bound_ms'] / device:.0%} of its bound),"
+                f" plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
                 f"({r['bound_by']}), library {r['library_ms']}")
 
     for shape in (FULL, LEVEL0, ODD, TINY):
@@ -677,6 +741,20 @@ def kernel_phase(torch, k, dev) -> dict:
                 (od, od), inputs=(x,))
             del x, b
         log(f"kernel A: {shape} ok")
+    # a stack of odd grids (the stack walk's scalar path in f32 and bf16),
+    # a stack one value past 16 bytes (its scalar path in f64 too), and
+    # the stacks of tiles of the sharded paths
+    for shape, offset in ((ODD_STACK, 0), (OFFSET_STACK, 1),
+                          *((stack, 0) for stack in SHARD_STACKS)):
+        for xd, od in combos + [("f64", "f64")]:
+            n = shape[0] * shape[1] * shape[2] * shape[3]
+            x, b = (rand((n + offset,), xd)[offset:].view(shape)
+                    for _ in range(2))
+            for kind in STACK_KINDS:
+                hold_stack(torch, k, kind, x, b, dt[od], od,
+                           f"{kind} {xd}->{od} {shape} offset {offset}")
+            del x, b
+        log(f"kernel A stack: {shape} at offset {offset} ok")
 
     for shape in (FULL, ODD_EVEN, TINY):
         coarse = tuple(n // 2 for n in shape)
@@ -2844,9 +2922,9 @@ def async_phase(torch, port, dev, card) -> None:
     reference's default experiment).  ``host_async_solve`` AM and
     AMAM_GLOBAL (s=4), one thread and one CUDA stream a block: each run
     must converge and be certified with the f64 relative residual under
-    1e-3; AM is timed over three runs, AMAM_GLOBAL (2-3x AM's sweeps) over
-    one; the first run of each is counted (kernels E [mv], F and G, and E
-    [spmm] for AMAM_GLOBAL, must launch).  The busy share is read on a
+    1e-3; each is run and timed once, that run counted (kernels E [mv], F
+    and G, and E [spmm] for AMAM_GLOBAL, must launch): a run takes 20-75 s
+    and the script's time limit is shared by every phase.  The busy share is read on a
     window of 10 sweeps a block, timed alone and then under the profiler
     (a whole run records ~10^5 kernels and takes minutes to sum).
     ``staged_multisplit_solve`` SMSM_GLOBAL must equal ``smsm`` in sweeps,
@@ -2869,7 +2947,7 @@ def async_phase(torch, port, dev, card) -> None:
     b = port.rhs_ones(op, torch.float32, dev)
     need = ("stencil2d_apply[mv]", "mdot", "maxpy")
     for label, kw, kernels, runs in (
-            ("host_async AM", {}, need, 3),
+            ("host_async AM", {}, need, 1),
             ("host_async AMAM_GLOBAL s=4", {"minimization": "global", "s": 4},
              need + ("stencil2d_apply[spmm]",), 1)):
         def run(maxiter=4000):
@@ -2967,6 +3045,8 @@ def async_phase(torch, port, dev, card) -> None:
 # ---------------------------------------------------------------------------
 
 SHARD_MESH = (2, 4)                     # ('block', 'intra'), 'local'
+# the stacks of kernel A's tiles on that mesh: 64^3 and 256^3 in 8 shards
+SHARD_STACKS = ((8, 8, 64, 64), (8, 32, 256, 256))
 SHARD_BSR = (32768, 32)                 # kernel I's sharded pack: n, block
 
 
@@ -2993,6 +3073,51 @@ def sharded_counted(torch, build, label, run, need, reps: int = 1):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return res, counts, (statistics.median(times) if times else first), first
+
+
+def shard_stack_case(torch, k, card, kind, x, b) -> None:
+    """Kernel A's kind on a stack of shard tiles in one launch: held against
+    its plain version and, bit for bit, the loop of one-tile launches
+    (``hold_stack``); then timed in turns (stack, loop, conv3d, conv3d,
+    loop, stack) one call at a time with events and, replayed in a CUDA
+    graph, on the device alone, beside the bound; ``conv3d`` over the stack
+    as a batch computes ``mv``, and no one call computes ``jacobi``."""
+    torch.backends.cudnn.allow_tf32 = False     # the yardstick in full f32
+    shape = tuple(x.shape)
+    err = hold_stack(torch, k, kind, x, b, torch.float32, "f32",
+                     f"sharded {kind} {shape}")
+    rhs = kind == "jacobi"
+    least = bound((3 if rhs else 2) * nbytes(x), (16 if rhs else 13) * x.numel())
+    calls = {"stack": lambda: stack_apply(k, kind, x, b, torch.float32),
+             "loop": lambda: stack_loop(torch, k, kind, x, b, torch.float32)}
+    if not rhs:
+        calls["conv3d"] = stencil_conv(torch, x, DIAG, OFF)
+    order = list(calls) + list(reversed(calls))
+    times = {name: [] for name in calls}
+    for name in order:
+        if name not in calls:
+            continue
+        if name == "conv3d":    # the library call: events, and no graph
+            lib = library_ms(torch, calls[name], f"conv3d {shape}")
+            if lib is None:
+                del calls[name], times[name]
+                continue
+            times[name].append((lib, lib))
+        else:
+            times[name].append((median_ms(torch, calls[name]),
+                                graph_ms(torch, calls[name])))
+    mid = {name: (statistics.median(e for e, _ in t),
+                  statistics.median(d for _, d in t))
+           for name, t in times.items()}
+    dev_ms = mid["stack"][1]
+    log(f"sharded kernel stencil3d_apply[{kind}] stack {shape} [{card}]: max "
+        f"abs err {err:.3e}, bits equal to a launch a tile; one launch "
+        f"{mid['stack'][0]:.4f} ms (device {dev_ms:.4f} ms, "
+        f"{least['bound_ms'] / dev_ms:.0%} of its bound); a launch a tile "
+        f"{mid['loop'][0]:.4f} ms (device {mid['loop'][1]:.4f} ms); conv3d "
+        + (f"{mid['conv3d'][0]:.4f} ms" if "conv3d" in mid else "none")
+        + f"; bound {least['bound_ms']:.4f} ms ({least['bound_by']}); each "
+        f"(events, device) in turns {times}")
 
 
 def shard_kernels(torch, dev, card, aij, bsr_op) -> None:
@@ -3048,21 +3173,13 @@ def shard_kernels(torch, dev, card, aij, bsr_op) -> None:
              lambda: e.stencil2d_apply_plain(x, diag=4.0, off=-1.0), "bits",
              bound(2 * nbytes(x), 9 * x.numel()),
              library=stencil_conv(torch, x, 4.0, -1.0))
-    # kernel A: a 64^3 shard and a 256^3 shard, kinds mv and jacobi
-    for shape in ((8, 64, 64), (32, 256, 256)):
+    # kernel A: the stacks of the 8 tiles of the 64^3 and 256^3 shards,
+    # kinds mv and jacobi
+    for shape in SHARD_STACKS:
         x, b = rnd(shape), rnd(shape)
-        held("stencil3d_apply[mv]", shape,
-             lambda: k.stencil3d_apply(x, kind="mv", diag=DIAG, off=OFF),
-             lambda: k.stencil3d_apply_plain(x, kind="mv", diag=DIAG,
-                                             off=OFF), "f32",
-             bound(2 * nbytes(x), 13 * x.numel()),
-             library=stencil_conv(torch, x[None], DIAG, OFF))
-    held("stencil3d_apply[jacobi]", shape,
-         lambda: k.stencil3d_apply(x, b, kind="jacobi", diag=DIAG, off=OFF,
-                                   omega=OMEGA),
-         lambda: k.stencil3d_apply_plain(x, b, kind="jacobi", diag=DIAG,
-                                         off=OFF, omega=OMEGA), "f32",
-         bound(3 * nbytes(x), 16 * x.numel()))
+        for kind in ("mv", "jacobi"):
+            shard_stack_case(torch, k, card, kind, x, b)
+        del x, b
     # kernels B, C, M on the 256^3 plan's gathered coarse grid (8^3 -> 4^3)
     x, b, ec = rnd((8, 8, 8)), rnd((8, 8, 8)), rnd((4, 4, 4))
     held("stencil3d_residual_restrict", (8, 8, 8),
@@ -3309,7 +3426,8 @@ def sharded_phase(torch, port, dev, card) -> None:
         f"{ns.rnorm / ns.rnorm0:.3e}, f64 rel {rel:.3e}, max|x-1| "
         f"{float((x64 - 1).abs().max()):.3e}; wall {wall * 1e3:.1f} ms "
         f"(first {first * 1e3:.1f} ms), single-device {s_wall * 1e3:.1f} ms;"
-        f" launches {counts}")
+        f" kernel A launches: mv {counts.get('stencil3d_apply[mv]', 0)}, "
+        f"jacobi {counts.get('stencil3d_apply[jacobi]', 0)}; launches {counts}")
     if not (ns.converged and rel <= 1e-8 and ns.passes <= 3):
         raise AssertionError(f"sharded north-star: passes {ns.passes}, rel "
                              f"{rel}")

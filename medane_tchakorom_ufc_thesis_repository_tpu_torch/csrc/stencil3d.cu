@@ -4,10 +4,12 @@
 // residual + restriction (kernel B) and its fused prolongation + Jacobi
 // sweep (kernel C), PCG's fused direction update (kernel J), and the
 // cycle's coarse Chebyshev solve in one launch (kernel M, whose device code
-// is in chebyshev_coarse.cuh, shared with stencil2d.cu).  Kernels
-// B and C, and kernel A's kind jacobi_dot on f32 and bf16 storage, are
-// barrier-free warp walks; the other kinds of A, and J and K, walk one
-// thread a (y, z) column.
+// is in chebyshev_coarse.cuh, shared with stencil2d.cu).  Kernel A's kinds
+// without a sum (mv, residual, jacobi, mv_cast) take a stack of grids in
+// one launch and stage each plane's tile in shared memory (stack_kernel);
+// kernels B and C, and kernel A's kind jacobi_dot on f32 and bf16 storage,
+// are barrier-free warp walks; A's other kinds with a sum, and J and K,
+// walk one thread a (y, z) column.
 //
 // Plain C interface, bound with ctypes by ops/stencil3d.py.  Every entry
 // point launches on the stream it is given, allocates nothing, and returns
@@ -54,16 +56,18 @@ __device__ __forceinline__ TC stencil7(TC diag, TC off, TC c, TC xm, TC xp,
 }
 
 // ---------------------------------------------------------------------------
-// Kernel A: stencil3d_apply
+// Kernel A: stencil3d_apply, the kinds with a sum
 //
 // Replaces ops/stencil_pallas.py:stencil3d_apply_pallas (_kernel3d, kinds
 // mv, mv_dot, residual, jacobi, jacobi_dot) and stencil3d_mv_cast_pallas
-// (_kernel3d_mvc, here the kind mv_cast).
+// (_kernel3d_mvc, here the kind mv_cast).  The kinds without a sum (mv,
+// residual, jacobi, mv_cast) run stack_kernel below, over a stack of grids;
+// this column walk serves the kinds with a sum, on one grid: mv_dot, and
+// jacobi_dot on f64 storage (f32 and bf16 take their own walk,
+// stencil3d_jacobi_dot below).
 //
-// Bound: memory bytes.  The floor is one read of x (and of b for the
-// residual and Jacobi kinds) and one write of y (and of the cast copy for
-// mv_cast): 8 bytes a point for an f32 mv, 1.07 GB at 512^3, 0.32 ms at
-// 3.35 TB/s.
+// Bound: memory bytes.  One read of x and one write of y: 8 bytes a point
+// for an f32 mv_dot, 1.07 GB at 512^3, 0.32 ms at 3.35 TB/s.
 //
 // Design: one thread per (y, z) column, threads along z so that a warp
 // reads 32 neighbouring floats; each thread walks a slab of SLAB x planes
@@ -75,20 +79,18 @@ __device__ __forceinline__ TC stencil7(TC diag, TC off, TC c, TC xm, TC xp,
 //
 // Kernel K is the kind mv_norm: it replaces
 // ops/fused_pallas.py:stencil3d_mv_norm_pallas (_mv_norm3d_kernel), y = A x
-// and ||b - y||^2 in one pass, for f32 or f64 x, b and y.  Being the same
-// instantiation pattern as mv, its y has mv's bits.  Bound: memory bytes,
-// reads of x and b and one write, 12 bytes a point in f32 (1.61 GB at
-// 512^3, 0.48 ms).
+// and ||b - y||^2 in one pass, for f32 or f64 x, b and y.  Its y is
+// stencil7 on the same operands as stack_kernel's mv, so it has mv's bits.
+// Bound: memory bytes, reads of x and b and one write, 12 bytes a point in
+// f32 (1.61 GB at 512^3, 0.48 ms).
 //
 // The dot kinds (x.Ax for mv_dot, b.x' for jacobi_dot, both on the
 // arithmetic-type value before its cast to the output type; the sum of
-// (b - y)^2 for mv_norm) write one partial sum per
-// block; sum_partials adds the partials in a fixed order.  (jacobi_dot on
-// f32 and bf16 storage has its own walk, stencil3d_jacobi_dot below; here
-// it serves f64 alone.)  No float
-// atomics, so a dot is the same from run to run and CG's iteration counts
-// repeat.  (The Pallas kernel carried the sum across its sequential grid,
-// which Hopper's blocks do not have.)
+// (b - y)^2 for mv_norm) write one partial sum per block, in apply_grid's
+// layout, which kernel J shares; sum_partials adds the partials in a fixed
+// order.  No float atomics, so a dot is the same from run to run and CG's
+// iteration counts repeat.  (The Pallas kernel carried the sum across its
+// sequential grid, which Hopper's blocks do not have.)
 // ---------------------------------------------------------------------------
 
 constexpr int BZ = 32;      // threads along z
@@ -115,15 +117,11 @@ __device__ __forceinline__ T block_sum(T v) {
     return s;
 }
 
-__host__ __device__ constexpr bool has_sum(int kind) {
-    return kind == MV_DOT || kind == JACOBI_DOT || kind == MV_NORM;
-}
-
 template <int KIND, typename TX, typename TO>
 __global__ void __launch_bounds__(NT) apply_kernel(
     const TX* __restrict__ x, const TX* __restrict__ b, TO* __restrict__ y,
-    TO* __restrict__ y2, typename Compute<TX>::type* __restrict__ partials,
-    int64_t nx, int64_t ny, int64_t nz, typename Compute<TX>::type diag,
+    typename Compute<TX>::type* __restrict__ partials, int64_t nx, int64_t ny,
+    int64_t nz, typename Compute<TX>::type diag,
     typename Compute<TX>::type off, typename Compute<TX>::type omega) {
     typedef typename Compute<TX>::type TC;
     const int64_t k = (int64_t)blockIdx.x * BZ + threadIdx.x;
@@ -143,12 +141,10 @@ __global__ void __launch_bounds__(NT) apply_kernel(
             const TC zw = k > 0 ? load(x, idx - 1) : TC(0);
             const TC ze = k + 1 < nz ? load(x, idx + 1) : TC(0);
             TC v = stencil7(diag, off, cur, prev, next, yn, ys, zw, ze);
-            if (KIND == RESIDUAL) {
-                v = load(b, idx) - v;
-            } else if (KIND == JACOBI || KIND == JACOBI_DOT) {
+            if (KIND == JACOBI_DOT) {
                 const TC bv = load(b, idx);
                 v = cur + omega * (bv - v);
-                if (KIND == JACOBI_DOT) acc += bv * v;
+                acc += bv * v;
             } else if (KIND == MV_DOT) {
                 acc += cur * v;
             } else if (KIND == MV_NORM) {
@@ -157,17 +153,14 @@ __global__ void __launch_bounds__(NT) apply_kernel(
                 acc += d * d;
             }
             store(y, idx, v);
-            if (KIND == MV_CAST) store(y2, idx, cur);
             prev = cur;
             cur = next;
         }
     }
-    if (has_sum(KIND)) {
-        const TC s = block_sum<NT>(acc);
-        if (threadIdx.x == 0 && threadIdx.y == 0)
-            partials[blockIdx.x + (int64_t)gridDim.x *
-                     (blockIdx.y + (int64_t)gridDim.y * blockIdx.z)] = s;
-    }
+    const TC s = block_sum<NT>(acc);
+    if (threadIdx.x == 0 && threadIdx.y == 0)
+        partials[blockIdx.x + (int64_t)gridDim.x *
+                 (blockIdx.y + (int64_t)gridDim.y * blockIdx.z)] = s;
 }
 
 // One block adds the partials: thread t takes t, t + 1024, ... in order,
@@ -187,46 +180,21 @@ dim3 apply_grid(int64_t nx, int64_t ny, int64_t nz) {
 }
 
 template <int KIND, typename TX, typename TO>
-cudaError_t launch_apply(const void* x, const void* b, void* y, void* y2,
-                         void* partials, void* dot, int64_t nx, int64_t ny,
-                         int64_t nz, double diag, double off, double omega,
+cudaError_t launch_apply(const void* x, const void* b, void* y, void* partials,
+                         void* dot, int64_t nx, int64_t ny, int64_t nz,
+                         double diag, double off, double omega,
                          cudaStream_t stream) {
     typedef typename Compute<TX>::type TC;
     const dim3 grid = apply_grid(nx, ny, nz);
     apply_kernel<KIND, TX, TO><<<grid, dim3(BZ, BY), 0, stream>>>(
         static_cast<const TX*>(x), static_cast<const TX*>(b), static_cast<TO*>(y),
-        static_cast<TO*>(y2), static_cast<TC*>(partials), nx, ny, nz, (TC)diag,
-        (TC)off, (TC)omega);
+        static_cast<TC*>(partials), nx, ny, nz, (TC)diag, (TC)off, (TC)omega);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    if (has_sum(KIND)) {
-        const int64_t n = (int64_t)grid.x * grid.y * grid.z;
-        sum_partials<TC><<<1, FINISH_THREADS, 0, stream>>>(
-            static_cast<const TC*>(partials), n, static_cast<TC*>(dot));
-        err = cudaGetLastError();
-    }
-    return err;
-}
-
-template <typename TX, typename TO>
-cudaError_t dispatch_kind(int kind, const void* x, const void* b, void* y,
-                          void* y2, void* partials, void* dot, int64_t nx,
-                          int64_t ny, int64_t nz, double diag, double off,
-                          double omega, cudaStream_t s) {
-    switch (kind) {
-        case MV:
-            return launch_apply<MV, TX, TO>(x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
-        case MV_DOT:
-            return launch_apply<MV_DOT, TX, TO>(x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
-        case RESIDUAL:
-            return launch_apply<RESIDUAL, TX, TO>(x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
-        case JACOBI:
-            return launch_apply<JACOBI, TX, TO>(x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
-        case MV_CAST:
-            return launch_apply<MV_CAST, TX, TO>(x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
-        default:
-            return cudaErrorInvalidValue;
-    }
+    const int64_t n = (int64_t)grid.x * grid.y * grid.z;
+    sum_partials<TC><<<1, FINISH_THREADS, 0, stream>>>(
+        static_cast<const TC*>(partials), n, static_cast<TC*>(dot));
+    return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -242,7 +210,7 @@ cudaError_t dispatch_kind(int kind, const void* x, const void* b, void* y,
 // point in f32 (2.15 GB at 512^3, 0.64 ms at 3.35 TB/s), against the 20
 // bytes of an axpy pass followed by the mv_dot kind.
 //
-// Design: kernel A's walk (one thread per (y, z) column over a slab of x
+// Design: kernel A's column walk (one thread per (y, z) column over a slab of x
 // planes, p' at x-1, x and x+1 in registers).  p' is never read back from
 // memory: a thread forms it from z and p at its own point and again at the
 // four in-plane neighbours, whose reads L1/L2 serve.  Every point's p' is
@@ -914,6 +882,391 @@ cudaError_t launch_residual_restrict(const void* x, const void* b, void* rc, int
 }
 
 // ---------------------------------------------------------------------------
+// Kernel A over a stack of grids: the kinds mv, residual, jacobi, mv_cast
+//
+// y = A x, b - A x, x + omega (b - A x), or A x with x's cast copy, on
+// each of t contiguous (nx, ny, nz) grids with zero outside each grid, in
+// one launch (the kinds of ops/stencil_pallas.py:stencil3d_apply_pallas
+// and stencil3d_mv_cast_pallas without a sum).  A single grid is a stack of
+// one.  The stacks are the shards' tiles of the sharded and tiled 3D paths
+// and the strips of the stacked 3D operator, where JAX runs a tile a chip.
+//
+// Bound: memory bytes.  One read of x (and of b) and one write of y (and of
+// the cast copy): 8 bytes a point for an f32 mv, 12 for residual and
+// jacobi, 0.321 ms for an f32 mv at 512^3 and 0.040 ms on the stack
+// (8, 32, 256, 256), at 3.35 TB/s.
+//
+// Design: a block owns a tile of ty rows by tz = tzv V z points of one grid
+// for a slab of x planes, and never crosses a grid of the stack; a thread
+// owns V neighbouring z points of one row, one 16-byte vector of the
+// storage type (V = 4 in f32, 8 in bf16, 2 in f64).  Each plane of the
+// tile, with its one-row y halo and its z halo, and b of the tile for the
+// kinds with b, is copied into a ring of ST_RING planes in shared memory by
+// cp.async, 16 bytes a copy (the z halo 4 or 8 bytes), ST_RING - 2 planes
+// ahead of the plane computed, so that the copies of the next planes
+// overlap the compute of this one; one barrier a plane.  (The ring is two
+// planes deeper than double buffering: with one plane in flight a block
+// waits a memory latency a plane.)  A thread keeps its x at plane i - 1 in
+// registers and reads x at planes i and i + 1, its y and z neighbours and
+// b from the ring, a 16-byte shared load a vector.  Points and planes
+// outside the grid are 0 by the copy's zero fill.  The tile and the slab
+// come from ops/stencil3d.stack_geometry: tzv vectors as nz takes, up to
+// 32, rows up to 256 threads and 64 rows, and a slab of 32 planes, halved
+// down to 2 while the launch would have fewer than two waves of ST_RESIDENT
+// blocks on each of the card's 132 SMs, so the 32-plane tiles of the
+// sharded 256^3 paths walk 8 planes a block and 512^3 keeps 32.  The slab
+// is the fastest block index, so a tile's slabs run side by side and the
+// planes they share come from L2.  Where nz is not a multiple of V or an
+// array does not start on 16 bytes (VEC false), the same ring is filled by
+// plain loads, point by point, each vector stored whole (the ring is only
+// ever read as 16-byte vectors: written value by value in f64 and read as
+// vectors, it gave wrong values on the card), and y is stored point by
+// point.  Every
+// point's value is stencil7 and the kind's epilogue on the operands of the
+// column walk above, so a grid of a stack has the bits of its launch alone,
+// and mv has the bits of mv_dot's and mv_norm's y.  What the design gives
+// up: a slab re-reads its two neighbouring x planes (1.25x the x reads at
+// a slab of 8, mostly from L2), and no TMA: the copies cost a thread's
+// instructions, one or two a plane.
+// ---------------------------------------------------------------------------
+
+constexpr int ST_THREADS = 256;   // threads a block at most (ops/stencil3d.py STACK_THREADS)
+constexpr int ST_ROWS = 64;       // rows a tile at most (STACK_ROWS): 48 KB of ring
+constexpr int ST_RING = 4;        // planes in a block's ring
+constexpr int ST_RESIDENT = 4;    // blocks an SM must hold: 64 registers a thread
+
+// the values a thread owns, one 16-byte vector of the storage type
+template <typename T> struct VecOf { enum { value = 16 / sizeof(T) }; };
+// the values of a z-halo copy: 4 bytes (cp.async's least), or one value
+template <typename T> struct HaloOf { enum { value = sizeof(T) < 4 ? 4 / sizeof(T) : 1 }; };
+
+template <> __device__ __forceinline__ double zero_of<double>() { return 0.0; }
+
+__device__ __forceinline__ unsigned word_of(const uint4& u, int i) {
+    return i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w;
+}
+
+// value e of a 16-byte vector of the storage type, in the arithmetic type
+// (bf16 to f32 is exact: its bits are the top half of the f32)
+template <typename T> __device__ __forceinline__ typename Compute<T>::type value_of(const uint4& u, int e);
+template <> __device__ __forceinline__ float value_of<float>(const uint4& u, int e) {
+    return __uint_as_float(word_of(u, e));
+}
+template <> __device__ __forceinline__ float value_of<bf16>(const uint4& u, int e) {
+    const unsigned w = word_of(u, e >> 1);
+    return __uint_as_float(e & 1 ? w & 0xffff0000u : w << 16);
+}
+template <> __device__ __forceinline__ double value_of<double>(const uint4& u, int e) {
+    return __hiloint2double((int)word_of(u, 2 * e + 1), (int)word_of(u, 2 * e));
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 vec_at(const T* p) {
+    return *reinterpret_cast<const uint4*>(p);
+}
+
+// V values of a storage type as one 16-byte vector.  The ring is written
+// and read as such vectors only (or written by cp.async), never value by
+// value: a store of one type and a load of another to the same shared
+// memory may be reordered by the compiler.
+__device__ __forceinline__ uint4 vec_of(const float (&v)[4]) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                      __float_as_uint(v[3]));
+}
+__device__ __forceinline__ uint4 vec_of(const double (&v)[2]) {
+    return make_uint4((unsigned)__double2loint(v[0]), (unsigned)__double2hiint(v[0]),
+                      (unsigned)__double2loint(v[1]), (unsigned)__double2hiint(v[1]));
+}
+__device__ __forceinline__ uint4 vec_of(const bf16 (&v)[8]) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+        w[i] = (unsigned)__bfloat16_as_ushort(v[2 * i]) |
+               ((unsigned)__bfloat16_as_ushort(v[2 * i + 1]) << 16);
+    return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ unsigned bf16_pair(float a, float b) {
+    return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(a)) |
+           ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16);
+}
+
+// N values stored at p in the storage type, as 8-, 16- or 32-byte stores
+// (p is aligned to the store, since nz is a multiple of the vector)
+template <int N>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[N]) {
+#pragma unroll
+    for (int e = 0; e < N; e += 4)
+        *reinterpret_cast<float4*>(p + e) = make_float4(v[e], v[e + 1], v[e + 2], v[e + 3]);
+}
+template <int N>
+__device__ __forceinline__ void store_vec(double* p, const double (&v)[N]) {
+#pragma unroll
+    for (int e = 0; e < N; e += 2)
+        *reinterpret_cast<double2*>(p + e) = make_double2(v[e], v[e + 1]);
+}
+template <int N>
+__device__ __forceinline__ void store_vec(bf16* p, const float (&v)[N]) {
+    if constexpr (N == 4) {
+        *reinterpret_cast<uint2*>(p) = make_uint2(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]));
+    } else {
+#pragma unroll
+        for (int e = 0; e < N; e += 8)
+            *reinterpret_cast<uint4*>(p + e) =
+                make_uint4(bf16_pair(v[e], v[e + 1]), bf16_pair(v[e + 2], v[e + 3]),
+                           bf16_pair(v[e + 4], v[e + 5]), bf16_pair(v[e + 6], v[e + 7]));
+    }
+}
+
+// The first `left` of N values (all, with VEC) stored at p
+template <bool VEC, typename TO, typename TC, int N>
+__device__ __forceinline__ void store_out(TO* p, const TC (&v)[N], int64_t left) {
+    if constexpr (VEC) {
+        store_vec(p, v);
+    } else {
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+            if (e < left) store(p, e, v[e]);
+    }
+}
+
+// cp.async of BYTES from global src to shared dst, zeros where ok is false
+template <int BYTES>
+__device__ __forceinline__ void copy_async(void* dst, const void* src, bool ok) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    if constexpr (BYTES == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                     "r"(ok ? 16 : 0)
+                     : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+                     "n"(BYTES), "r"(ok ? BYTES : 0)
+                     : "memory");
+}
+
+// A block's tile: its grid's extents, its first row and z point, its rows,
+// its vectors a row (a power of two) and their log2, its z points and the
+// length of a staged row (the tile's z points and a vector on each side)
+struct StackTile {
+    int64_t nx, ny, nz, plane, j0, k0;
+    int ty, tzv, lz, tz, w;
+};
+
+// The V values of row offset `row` from z point k into dst: one 16-byte
+// copy (VEC), or loaded value by value (zero past nz) and stored as one
+// vector; zeros unless ok
+template <bool VEC, typename T>
+__device__ __forceinline__ void stage_values(T* dst, const T* __restrict__ src, int64_t row,
+                                             int64_t k, int64_t nz, bool ok) {
+    constexpr int V = VecOf<T>::value;
+    if constexpr (VEC) {
+        ok = ok && k < nz;
+        copy_async<16>(dst, src + (ok ? row + k : 0), ok);
+    } else {
+        T v[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) v[e] = ok && k + e < nz ? src[row + k + e] : zero_of<T>();
+        *reinterpret_cast<uint4*>(dst) = vec_of(v);
+    }
+}
+
+// One value as the vector that holds it in the ring: at place e, zeros
+// around it
+template <typename T>
+__device__ __forceinline__ uint4 vec_with(T value, int e) {
+    T v[VecOf<T>::value];
+#pragma unroll
+    for (int i = 0; i < VecOf<T>::value; ++i) v[i] = i == e ? value : zero_of<T>();
+    return vec_of(v);
+}
+
+// Plane p of the tile into a ring slot: x of rows j0 - 1 .. j0 + ty (row r
+// of the slot at r w, the tile's z points from column V), the z halo of
+// rows j0 .. j0 + ty - 1 (z point k0 - 1 at column V - 1, k0 + tz at V +
+// tz, in the vectors of padding either side), and, with_b, b of rows j0 ..
+// j0 + ty - 1 after them (row stride tz).  Zeros outside the grid.
+template <bool VEC, typename T>
+__device__ __forceinline__ void stack_stage(T* slot, const T* __restrict__ x,
+                                            const T* __restrict__ b, const StackTile& t,
+                                            int64_t p, bool with_b) {
+    constexpr int V = VecOf<T>::value, H = HaloOf<T>::value;
+    const int tid = threadIdx.x + threadIdx.y * t.tzv, nt = t.ty * t.tzv;
+    const bool in = p >= 0 && p < t.nx;
+    const int64_t q = p * t.plane;
+    for (int u = tid; u < (t.ty + 2) * t.tzv; u += nt) {
+        const int r = u >> t.lz, c = u & (t.tzv - 1);
+        const int64_t j = t.j0 - 1 + r;
+        const bool ok = in && j >= 0 && j < t.ny;
+        stage_values<VEC>(slot + r * t.w + V + c * V, x, ok ? q + j * t.nz : 0,
+                          t.k0 + (int64_t)c * V, t.nz, ok);
+    }
+    for (int h = tid; h < 2 * t.ty; h += nt) {
+        const bool left = h < t.ty;
+        const int r = (left ? h : h - t.ty) + 1;
+        const int64_t j = t.j0 + r - 1;
+        const bool row_in = in && j < t.ny;
+        // VEC copies H values, so the left copy starts H - 1 before k0 - 1
+        const int64_t k = left ? t.k0 - (VEC ? H : 1) : t.k0 + t.tz;
+        const bool ok = row_in && (left ? t.k0 > 0 : k < t.nz);
+        T* dst = slot + r * t.w + (left ? V - (VEC ? H : 1) : V + t.tz);
+        if constexpr (VEC)
+            copy_async<(int)(H * sizeof(T))>(dst, x + (ok ? q + j * t.nz + k : 0), ok);
+        else  // the vector of padding that holds the halo value
+            *reinterpret_cast<uint4*>(left ? dst - (V - 1) : dst) =
+                vec_with(ok ? x[q + j * t.nz + k] : zero_of<T>(), left ? V - 1 : 0);
+    }
+    if (with_b) {
+        T* sb = slot + (t.ty + 2) * t.w;
+        for (int u = tid; u < t.ty * t.tzv; u += nt) {
+            const int r = u >> t.lz, c = u & (t.tzv - 1);
+            const int64_t j = t.j0 + r;
+            const bool ok = in && j < t.ny;
+            stage_values<VEC>(sb + r * t.tz + c * V, b, ok ? q + j * t.nz : 0,
+                              t.k0 + (int64_t)c * V, t.nz, ok);
+        }
+    }
+}
+
+template <int KIND, typename TX, typename TO, bool VEC>
+__global__ void __launch_bounds__(ST_THREADS, ST_RESIDENT) stack_kernel(
+    const TX* __restrict__ x, const TX* __restrict__ b, TO* __restrict__ y,
+    TO* __restrict__ y2, int64_t nx, int64_t ny, int64_t nz, int64_t slab,
+    int64_t nslab, int64_t ntz, int64_t nty, typename Compute<TX>::type diag,
+    typename Compute<TX>::type off, typename Compute<TX>::type omega) {
+    typedef typename Compute<TX>::type TC;
+    constexpr int V = VecOf<TX>::value;
+    constexpr bool RHS = KIND == RESIDUAL || KIND == JACOBI;
+    extern __shared__ __align__(16) unsigned char stack_ring[];
+
+    StackTile t;
+    t.nx = nx; t.ny = ny; t.nz = nz; t.plane = ny * nz;
+    t.ty = blockDim.y; t.tzv = blockDim.x; t.lz = __ffs(t.tzv) - 1;
+    t.tz = t.tzv * V; t.w = t.tz + 2 * V;
+    // the block: slab fastest, then the tile's z, its y, the grid
+    int64_t blk = blockIdx.x;
+    const int64_t i0 = (blk % nslab) * slab;
+    blk /= nslab;
+    t.k0 = (blk % ntz) * t.tz;
+    blk /= ntz;
+    t.j0 = (blk % nty) * t.ty;
+    const int64_t grid = (blk / nty) * nx * t.plane;    // the grid's offset
+    const TX* xg = x + grid;
+    const TX* bg = RHS ? b + grid : nullptr;
+    const int64_t i1 = i0 + slab < nx ? i0 + slab : nx;
+    const int slot_len = (t.ty + 2) * t.w + (RHS ? t.ty * t.tz : 0);
+    TX* const ring = reinterpret_cast<TX*>(stack_ring);
+    // plane p's slot; the ring holds planes i0 - 1 .. i1
+    auto slot = [&](int64_t p) {
+        return ring + ((int)(p - i0 + 1) & (ST_RING - 1)) * slot_len;
+    };
+    auto stage = [&](int64_t p) {
+        if (p <= i1) stack_stage<VEC>(slot(p), xg, bg, t, p, RHS && p >= i0 && p < i1);
+        stage_commit();   // a group a plane, empty or not, so the waits count planes
+    };
+
+#pragma unroll
+    for (int s = 0; s < ST_RING; ++s) stage(i0 - 1 + s);
+    stage_wait<ST_RING - 2>();      // planes i0 - 1 and i0 are in
+    __syncthreads();
+    const int own = (threadIdx.y + 1) * t.w + V + threadIdx.x * V;   // in a slot
+    const int64_t j = t.j0 + threadIdx.y, k = t.k0 + (int64_t)threadIdx.x * V;
+    const bool owns = j < ny && k < nz;
+    uint4 prev = vec_at(slot(i0 - 1) + own), cur = vec_at(slot(i0) + own);
+    for (int64_t i = i0; i < i1; ++i) {
+        stage_wait<ST_RING - 3>();  // plane i + 1 is in
+        __syncthreads();            // and no thread reads plane i - 1's slot
+        stage(i + ST_RING - 1);     // into plane i - 1's slot
+        const TX* sc = slot(i);
+        const uint4 next = vec_at(slot(i + 1) + own);
+        const uint4 yn = vec_at(sc + own - t.w), ys = vec_at(sc + own + t.w);
+        // z points k - 1 and k + V: the ends of the vectors either side
+        const TC zw = value_of<TX>(vec_at(sc + own - V), V - 1);
+        const TC ze = value_of<TX>(vec_at(sc + own + V), 0);
+        const uint4 bv = RHS ? vec_at(sc + (t.ty + 2) * t.w + threadIdx.y * t.tz +
+                                      threadIdx.x * V)
+                             : make_uint4(0u, 0u, 0u, 0u);
+        TC out[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+            const TC c = value_of<TX>(cur, e);
+            const TC zm = e == 0 ? zw : value_of<TX>(cur, e - 1);
+            const TC zp = e == V - 1 ? ze : value_of<TX>(cur, e + 1);
+            TC v = stencil7(diag, off, c, value_of<TX>(prev, e), value_of<TX>(next, e),
+                            value_of<TX>(yn, e), value_of<TX>(ys, e), zm, zp);
+            if (KIND == RESIDUAL) {
+                v = value_of<TX>(bv, e) - v;
+            } else if (KIND == JACOBI) {
+                v = c + omega * (value_of<TX>(bv, e) - v);
+            }
+            out[e] = v;
+        }
+        if (owns) {
+            const int64_t q = grid + i * t.plane + j * nz + k;
+            store_out<VEC>(y + q, out, nz - k);
+            if (KIND == MV_CAST) {
+                TC cv[V];
+#pragma unroll
+                for (int e = 0; e < V; ++e) cv[e] = value_of<TX>(cur, e);
+                store_out<VEC>(y2 + q, cv, nz - k);
+            }
+        }
+        prev = cur;
+        cur = next;
+    }
+    stage_wait<0>();                // no copy outlives the block
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <int KIND, typename TX, typename TO>
+cudaError_t launch_stack(const void* x, const void* b, void* y, void* y2, int64_t t,
+                         int64_t nx, int64_t ny, int64_t nz, int tzv, int ty, int slab,
+                         double diag, double off, double omega, cudaStream_t s) {
+    typedef typename Compute<TX>::type TC;
+    constexpr int V = VecOf<TX>::value;
+    constexpr bool RHS = KIND == RESIDUAL || KIND == JACOBI;
+    const int tz = tzv * V;
+    const int64_t nslab = (nx + slab - 1) / slab, ntz = (nz + tz - 1) / tz,
+                  nty = (ny + ty - 1) / ty;
+    const int64_t blocks = t * nslab * ntz * nty;
+    const size_t ring =
+        (size_t)ST_RING * ((ty + 2) * (tz + 2 * V) + (RHS ? ty * tz : 0)) * sizeof(TX);
+    if (blocks > 0x7fffffff || ring > 48 * 1024) return cudaErrorInvalidValue;
+    const bool vec = nz % V == 0 && aligned16(x) && (!RHS || aligned16(b)) && aligned16(y) &&
+                     (KIND != MV_CAST || aligned16(y2));
+    const dim3 block(tzv, ty);
+    if (vec)
+        stack_kernel<KIND, TX, TO, true><<<(unsigned)blocks, block, ring, s>>>(
+            static_cast<const TX*>(x), static_cast<const TX*>(b), static_cast<TO*>(y),
+            static_cast<TO*>(y2), nx, ny, nz, slab, nslab, ntz, nty, (TC)diag, (TC)off,
+            (TC)omega);
+    else
+        stack_kernel<KIND, TX, TO, false><<<(unsigned)blocks, block, ring, s>>>(
+            static_cast<const TX*>(x), static_cast<const TX*>(b), static_cast<TO*>(y),
+            static_cast<TO*>(y2), nx, ny, nz, slab, nslab, ntz, nty, (TC)diag, (TC)off,
+            (TC)omega);
+    return cudaGetLastError();
+}
+
+template <typename TX, typename TO>
+cudaError_t dispatch_stack(int kind, const void* x, const void* b, void* y, void* y2,
+                           int64_t t, int64_t nx, int64_t ny, int64_t nz, int tzv, int ty,
+                           int slab, double diag, double off, double omega, cudaStream_t s) {
+    switch (kind) {
+        case MV:
+            return launch_stack<MV, TX, TO>(x, b, y, y2, t, nx, ny, nz, tzv, ty, slab, diag, off, omega, s);
+        case RESIDUAL:
+            return launch_stack<RESIDUAL, TX, TO>(x, b, y, y2, t, nx, ny, nz, tzv, ty, slab, diag, off, omega, s);
+        case JACOBI:
+            return launch_stack<JACOBI, TX, TO>(x, b, y, y2, t, nx, ny, nz, tzv, ty, slab, diag, off, omega, s);
+        case MV_CAST:
+            return launch_stack<MV_CAST, TX, TO>(x, b, y, y2, t, nx, ny, nz, tzv, ty, slab, diag, off, omega, s);
+        default:
+            return cudaErrorInvalidValue;
+    }
+}
+
+// ---------------------------------------------------------------------------
 // Kernel A, kind jacobi_dot, on f32 and bf16 storage: the warp walk
 //
 // y = x + omega (b - A x) and b . y in one pass (the kind jacobi_dot of
@@ -925,7 +1278,7 @@ cudaError_t launch_residual_restrict(const void* x, const void* b, void* rc, int
 //
 // Design: the warp walk above, over any grid (nz may be odd: then the
 // scalar loads).  Each point's y is stencil7 and then the expression of
-// apply_kernel's Jacobi kinds, so y has the bits of the kind jacobi.  A
+// stack_kernel's kind jacobi, so y has the bits of the kind jacobi.  A
 // lane adds b . y over its points in an f32 register for its whole walk;
 // each warp then sums its lanes by xor shuffles in a fixed order and
 // writes one partial, with no block barrier; sum_partials adds the
@@ -1067,43 +1420,70 @@ int64_t stencil3d_apply_partials(int64_t nx, int64_t ny, int64_t nz) {
     return (int64_t)g.x * g.y * g.z;
 }
 
-// kind: 0 mv, 1 mv_dot, 2 residual, 3 jacobi, 4 jacobi_dot, 5 mv_cast,
-// 6 mv_norm (kernel K).  b: the right-hand side of the residual, Jacobi and
-// mv_norm kinds (x's type) or null.  y2: the cast copy of x for mv_cast, or
-// null.  partials (stencil3d_apply_partials values) and dot (one value),
-// both of the arithmetic type (f32, or f64 for f64 storage), for the kinds
-// with a sum, or null.  f64 goes with f64 only; mv_norm takes one type for
-// x, b and y, f32 or f64; jacobi_dot takes f64 alone (f32 and bf16 storage:
+// The kinds with a sum, on one grid: kind 1 mv_dot, 4 jacobi_dot, 6
+// mv_norm (kernel K).  b: the right-hand side of jacobi_dot and mv_norm
+// (x's type) or null.  partials (stencil3d_apply_partials values) and dot
+// (one value), both of the arithmetic type (f32, or f64 for f64 storage).
+// f64 goes with f64 only; mv_norm takes one type for x, b and y, f32 or
+// f64; jacobi_dot takes f64 alone (f32 and bf16 storage:
 // stencil3d_jacobi_dot).
 int stencil3d_apply(int kind, int x_dtype, int out_dtype, const void* x,
-                    const void* b, void* y, void* y2, void* partials,
-                    void* dot, int64_t nx, int64_t ny, int64_t nz, double diag,
+                    const void* b, void* y, void* partials, void* dot,
+                    int64_t nx, int64_t ny, int64_t nz, double diag,
                     double off, double omega, void* stream) {
     if (nx < 1 || ny < 1 || nz < 1) return cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (kind == JACOBI_DOT) {
-        // f32 and bf16 storage take their own walk, stencil3d_jacobi_dot
         if (x_dtype == F64 && out_dtype == F64)
-            return launch_apply<JACOBI_DOT, double, double>(x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
+            return launch_apply<JACOBI_DOT, double, double>(x, b, y, partials, dot, nx, ny, nz, diag, off, omega, s);
         return cudaErrorInvalidValue;
     }
     if (kind == MV_NORM) {
         if (x_dtype == F32 && out_dtype == F32)
-            return launch_apply<MV_NORM, float, float>(x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
+            return launch_apply<MV_NORM, float, float>(x, b, y, partials, dot, nx, ny, nz, diag, off, omega, s);
         if (x_dtype == F64 && out_dtype == F64)
-            return launch_apply<MV_NORM, double, double>(x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
+            return launch_apply<MV_NORM, double, double>(x, b, y, partials, dot, nx, ny, nz, diag, off, omega, s);
         return cudaErrorInvalidValue;
     }
+    if (kind != MV_DOT) return cudaErrorInvalidValue;
     if (x_dtype == F32 && out_dtype == F32)
-        return dispatch_kind<float, float>(kind, x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
+        return launch_apply<MV_DOT, float, float>(x, b, y, partials, dot, nx, ny, nz, diag, off, omega, s);
     if (x_dtype == F32 && out_dtype == BF16)
-        return dispatch_kind<float, bf16>(kind, x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
+        return launch_apply<MV_DOT, float, bf16>(x, b, y, partials, dot, nx, ny, nz, diag, off, omega, s);
     if (x_dtype == BF16 && out_dtype == F32)
-        return dispatch_kind<bf16, float>(kind, x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
+        return launch_apply<MV_DOT, bf16, float>(x, b, y, partials, dot, nx, ny, nz, diag, off, omega, s);
     if (x_dtype == BF16 && out_dtype == BF16)
-        return dispatch_kind<bf16, bf16>(kind, x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
+        return launch_apply<MV_DOT, bf16, bf16>(x, b, y, partials, dot, nx, ny, nz, diag, off, omega, s);
     if (x_dtype == F64 && out_dtype == F64)
-        return dispatch_kind<double, double>(kind, x, b, y, y2, partials, dot, nx, ny, nz, diag, off, omega, s);
+        return launch_apply<MV_DOT, double, double>(x, b, y, partials, dot, nx, ny, nz, diag, off, omega, s);
+    return cudaErrorInvalidValue;
+}
+
+// The kinds without a sum on a stack of t contiguous (nx, ny, nz) grids:
+// kind 0 mv, 2 residual, 3 jacobi, 5 mv_cast.  b: the right-hand side of
+// residual and jacobi (x's type, x's shape) or null.  y2: the cast copy of
+// x for mv_cast, or null.  tzv, ty, slab: the tile (tzv 16-byte vectors of
+// x's type along z, a power of two up to 32, by ty rows, at most 64 and
+// tzv ty <= 256) and the x planes a block walks (ops/stencil3d.py
+// stack_geometry).  f64 goes with f64 only.
+int stencil3d_apply_stack(int kind, int x_dtype, int out_dtype, const void* x,
+                          const void* b, void* y, void* y2, int64_t t, int64_t nx,
+                          int64_t ny, int64_t nz, int tzv, int ty, int slab,
+                          double diag, double off, double omega, void* stream) {
+    if (t < 1 || nx < 1 || ny < 1 || nz < 1 || tzv < 1 || tzv > 32 || (tzv & (tzv - 1)) ||
+        ty < 1 || ty > ST_ROWS || tzv * ty > ST_THREADS || slab < 1)
+        return cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (x_dtype == F32 && out_dtype == F32)
+        return dispatch_stack<float, float>(kind, x, b, y, y2, t, nx, ny, nz, tzv, ty, slab, diag, off, omega, s);
+    if (x_dtype == F32 && out_dtype == BF16)
+        return dispatch_stack<float, bf16>(kind, x, b, y, y2, t, nx, ny, nz, tzv, ty, slab, diag, off, omega, s);
+    if (x_dtype == BF16 && out_dtype == F32)
+        return dispatch_stack<bf16, float>(kind, x, b, y, y2, t, nx, ny, nz, tzv, ty, slab, diag, off, omega, s);
+    if (x_dtype == BF16 && out_dtype == BF16)
+        return dispatch_stack<bf16, bf16>(kind, x, b, y, y2, t, nx, ny, nz, tzv, ty, slab, diag, off, omega, s);
+    if (x_dtype == F64 && out_dtype == F64)
+        return dispatch_stack<double, double>(kind, x, b, y, y2, t, nx, ny, nz, tzv, ty, slab, diag, off, omega, s);
     return cudaErrorInvalidValue;
 }
 

@@ -238,9 +238,9 @@ class StackedStencil3D(BlockOperator):
         return 7 * nx * ny * nz - 2 * (nx * ny + ny * nz + nx * nz)
 
     def _apply_each(self, grids: torch.Tensor) -> torch.Tensor:
-        """Kernel A (kind ``mv``) on each grid of a contiguous stack."""
-        return torch.stack([stencil3d_apply(g, kind="mv", diag=self.diag,
-                                            off=self.off) for g in grids])
+        """Kernel A (kind ``mv``) on each grid of a contiguous stack, in one
+        launch."""
+        return stencil3d_apply(grids, kind="mv", diag=self.diag, off=self.off)
 
     def diag_mv(self, x: torch.Tensor) -> torch.Tensor:
         """``A_ii x_i`` for every strip of ``x`` (``(nb, bs)`` or a panel

@@ -208,7 +208,7 @@ def stencil3d_mv_norm(x: torch.Tensor, b: torch.Tensor, *, nx: int, ny: int,
     out = torch.empty((), dtype=x.dtype, device=x.device)
     code = _NORM_CODE[x.dtype]
     rc = lib.stencil3d_apply(6, code, code, x.data_ptr(), b.data_ptr(),
-                             y.data_ptr(), None, partials.data_ptr(),
+                             y.data_ptr(), partials.data_ptr(),
                              out.data_ptr(), nx, ny, nz, diag, off, 0.0,
                              build.stream(x))
     build.check(lib, rc, "stencil3d_mv_norm")

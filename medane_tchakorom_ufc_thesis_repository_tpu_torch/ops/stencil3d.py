@@ -5,11 +5,14 @@ Five hand-written CUDA kernels (``csrc/stencil3d.cu``,
 ``csrc/df_residual.cu``) serve six wrappers:
 
 * ``stencil3d_apply`` (kernel A): ``A x`` with the fused epilogues of
-  kinds ``mv``, ``mv_dot``, ``residual``, ``jacobi`` and ``jacobi_dot``
-  (on f32/bf16 storage the last is a warp walk of its own, with one
-  partial sum a warp);
+  kinds ``mv``, ``mv_dot``, ``residual``, ``jacobi`` and ``jacobi_dot``;
+  the kinds without a dot take a stack ``(T, nx, ny, nz)`` of grids in
+  one launch (the shards' tiles and the stacked strips), the dot kinds one
+  grid (on f32/bf16 storage ``jacobi_dot`` is a warp walk of its own, with
+  one partial sum a warp);
 * ``stencil3d_mv_cast`` (kernel A, kind ``mv_cast``): ``(A x, x)`` both
-  written at a narrower type, the entry of a bf16 multigrid cycle;
+  written at a narrower type, the entry of a bf16 multigrid cycle; it
+  takes a stack too;
 * ``stencil3d_residual_restrict`` (kernel B);
 * ``stencil3d_prolong_jacobi`` (kernel C);
 * ``stencil3d_df_residual`` (kernel D): double-float ``b - A x``;
@@ -22,7 +25,8 @@ kernel A; its wrapper ``stencil3d_mv_norm`` is in ``ops/fused.py``.)
 Each wrapper has a ``*_plain`` PyTorch version of the same function
 beside it.  A wrapper takes its plain version only for tensors on the
 CPU; for CUDA tensors it launches its kernel or raises.  Grids are
-contiguous ``(nx, ny, nz)`` tensors.  Storage is f32 or bf16 with f32
+contiguous ``(nx, ny, nz)`` tensors, stacks contiguous ``(T, nx, ny, nz)``
+tensors, each grid with zero outside it.  Storage is f32 or bf16 with f32
 arithmetic; kernels A and J and the plain versions also take f64 and
 then compute in f64 (kernels B and C do not, on the card).  The taps are
 summed in one order everywhere:
@@ -30,8 +34,9 @@ summed in one order everywhere:
 
 Every kernel launch adds one to its entry in ``launch_counts()`` (the
 port's counts of all wrappers, kept in ``ops/build.py``); plain calls
-count nothing.  The warp walks (kernels B and C, and the kind
-``jacobi_dot``) take their launch geometry from ``walk_slab``.
+count nothing; a launch over a stack counts once.  The warp walks
+(kernels B and C, and the kind ``jacobi_dot``) take their launch geometry
+from ``walk_slab``, kernel A's kinds without a dot from ``stack_geometry``.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import torch.nn.functional as F
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import build
 
 KINDS = ("mv", "mv_dot", "residual", "jacobi", "jacobi_dot")
+_DOT_KINDS = ("mv_dot", "jacobi_dot")       # one grid a launch
 _KIND_CODE = {"mv": 0, "mv_dot": 1, "residual": 2, "jacobi": 3,
               "jacobi_dot": 4, "mv_cast": 5}
 _WITH_RHS = ("residual", "jacobi", "jacobi_dot")
@@ -61,9 +67,11 @@ reset_launch_counts = build.reset_launch_counts
 # ---------------------------------------------------------------------------
 
 def _check_grid(name: str, t: torch.Tensor, like: Optional[torch.Tensor] = None,
-                shape=None) -> None:
-    if t.dim() != 3 or min(t.shape) < 1:
-        raise ValueError(f"{name} must be a non-empty (nx, ny, nz) grid, "
+                shape=None, stack: bool = False) -> None:
+    """``stack``: a ``(T, nx, ny, nz)`` stack is taken as well as a grid."""
+    if not (t.dim() == 3 or stack and t.dim() == 4) or min(t.shape) < 1:
+        what = "grid or (T, nx, ny, nz) stack" if stack else "grid"
+        raise ValueError(f"{name} must be a non-empty (nx, ny, nz) {what}, "
                          f"got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
@@ -100,10 +108,13 @@ def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def _apply(c: torch.Tensor, diag: float, off: float) -> torch.Tensor:
-    """``A c`` in ``c``'s dtype, zero Dirichlet boundary."""
+    """``A c`` in ``c``'s dtype, zero Dirichlet boundary, on each grid of
+    ``c`` (its last three axes; a leading axis is a stack, each grid
+    padded on its own)."""
     p = F.pad(c, (1, 1, 1, 1, 1, 1))
-    taps = ((((p[:-2, 1:-1, 1:-1] + p[2:, 1:-1, 1:-1]) + p[1:-1, :-2, 1:-1])
-             + p[1:-1, 2:, 1:-1]) + (p[1:-1, 1:-1, :-2] + p[1:-1, 1:-1, 2:]))
+    i, lo, hi = slice(1, -1), slice(None, -2), slice(2, None)
+    taps = ((((p[..., lo, i, i] + p[..., hi, i, i]) + p[..., i, lo, i])
+             + p[..., i, hi, i]) + (p[..., i, i, lo] + p[..., i, i, hi]))
     return diag * c + off * taps
 
 
@@ -141,9 +152,9 @@ def _check_apply(x, extras, kind, omega):
     if (omega is None) == kind.startswith("jacobi"):
         raise ValueError(f"omega is required by the jacobi kinds and only "
                          f"by them (kind {kind!r}, omega {omega!r})")
-    _check_grid("x", x)
+    _check_grid("x", x, stack=kind not in _DOT_KINDS)
     for e in extras:
-        _check_grid("b", e, like=x, shape=x.shape)
+        _check_grid("b", e, like=x, shape=x.shape, stack=True)
 
 
 def stencil3d_apply_plain(x: torch.Tensor, *extras: torch.Tensor, kind: str,
@@ -153,7 +164,9 @@ def stencil3d_apply_plain(x: torch.Tensor, *extras: torch.Tensor, kind: str,
     """Plain version of ``stencil3d_apply``: ``mv`` → ``A x``;
     ``mv_dot`` → ``(A x, x·Ax)``; ``residual`` → ``b - A x``; ``jacobi``
     → ``x + omega (b - A x)``; ``jacobi_dot`` → ``(x', b·x')``.  The dots
-    are f32 sums of f32 products taken before the cast to ``out_dtype``."""
+    are f32 sums of f32 products taken before the cast to ``out_dtype``.
+    A stack is computed grid by grid in one pass, each grid with the bits
+    it has alone."""
     _check_apply(x, extras, kind, omega)
     odt = x.dtype if out_dtype is None else out_dtype
     c = x.to(_compute_dtype(x.dtype))
@@ -176,10 +189,13 @@ def stencil3d_apply(x: torch.Tensor, *extras: torch.Tensor, kind: str,
                     diag: float, off: float, omega: Optional[float] = None,
                     out_dtype: Optional[torch.dtype] = None):
     """Kernel A (replaces ``stencil_pallas.stencil3d_apply_pallas``).
-    ``extras`` is ``(b,)`` for the residual and Jacobi kinds, of ``x``'s
-    dtype; ``out_dtype`` (default ``x.dtype``) may differ.  The dot kinds
-    return ``(y, dot)`` with ``dot`` a 0-d f32 tensor (f64 grids sum in
-    f64 on the card and round the sum to f32)."""
+    ``x`` is an ``(nx, ny, nz)`` grid or, for the kinds without a dot, a
+    contiguous ``(T, nx, ny, nz)`` stack of grids, each with zero outside
+    it, computed in one launch.  ``extras`` is ``(b,)`` for the residual
+    and Jacobi kinds, of ``x``'s dtype and shape; ``out_dtype`` (default
+    ``x.dtype``) may differ.  The dot kinds return ``(y, dot)`` with
+    ``dot`` a 0-d f32 tensor (f64 grids sum in f64 on the card and round
+    the sum to f32)."""
     _check_apply(x, extras, kind, omega)
     odt = x.dtype if out_dtype is None else out_dtype
     cuda = build.on_cuda(x)
@@ -187,26 +203,72 @@ def stencil3d_apply(x: torch.Tensor, *extras: torch.Tensor, kind: str,
     if not cuda:
         return stencil3d_apply_plain(x, *extras, kind=kind, diag=diag, off=off,
                                      omega=omega, out_dtype=out_dtype)
-    nx, ny, nz = x.shape
     lib = build.load("stencil3d")
     y = torch.empty(x.shape, dtype=odt, device=x.device)
+    if kind not in _DOT_KINDS:
+        _launch_stack(lib, kind, x, extras[0] if extras else None, y, None,
+                      diag, off, omega)
+        build.count(f"stencil3d_apply[{kind}]")
+        return y
     if kind == "jacobi_dot" and x.dtype != torch.float64:
         return y, _jacobi_dot_walk(lib, x, extras[0], y, diag, off, omega)
-    partials = dot = None
-    if kind.endswith("_dot"):
-        n = lib.stencil3d_apply_partials(nx, ny, nz)
-        cdt = _compute_dtype(x.dtype)
-        partials = torch.empty(n, dtype=cdt, device=x.device)
-        dot = torch.empty((), dtype=cdt, device=x.device)
+    nx, ny, nz = x.shape
+    cdt = _compute_dtype(x.dtype)
+    partials = torch.empty(lib.stencil3d_apply_partials(nx, ny, nz), dtype=cdt,
+                           device=x.device)
+    dot = torch.empty((), dtype=cdt, device=x.device)
     rc = lib.stencil3d_apply(
         _KIND_CODE[kind], _DTYPE_CODE[x.dtype], _DTYPE_CODE[odt], x.data_ptr(),
-        extras[0].data_ptr() if extras else None, y.data_ptr(), None,
-        None if partials is None else partials.data_ptr(),
-        None if dot is None else dot.data_ptr(), nx, ny, nz, diag, off,
+        extras[0].data_ptr() if extras else None, y.data_ptr(),
+        partials.data_ptr(), dot.data_ptr(), nx, ny, nz, diag, off,
         0.0 if omega is None else omega, build.stream(x))
     build.check(lib, rc, f"stencil3d_apply[{kind}]")
     build.count(f"stencil3d_apply[{kind}]")
-    return (y, dot.to(torch.float32)) if dot is not None else y
+    return y, dot.to(torch.float32)
+
+
+# kernel A's kinds without a dot (csrc/stencil3d.cu stack_kernel): a block
+# owns a tile of at most STACK_THREADS threads, one 16-byte vector of z
+# points each, in at most STACK_ROWS rows, and walks a slab of at most
+# STACK_SLAB x planes; slabs are halved (down to 2) while the launch would
+# have fewer than STACK_MIN_BLOCKS blocks: two waves of 4 resident blocks
+# (the kernel's register cap) on each of the H100's 132 SMs
+STACK_THREADS, STACK_ROWS, STACK_SLAB = 256, 64, 32
+STACK_MIN_BLOCKS = 2 * 4 * 132
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def stack_geometry(shape, dtype: torch.dtype) -> Tuple[int, int, int]:
+    """``(tzv, ty, slab)`` of kernel A's stack walk on a ``(T, nx, ny,
+    nz)`` stack of ``dtype``: tzv 16-byte vectors along z (a power of two,
+    as many as nz takes, up to 32) by ty rows (a power of two, as many as ny
+    takes, up to ``STACK_THREADS // tzv`` and ``STACK_ROWS``), and the x
+    planes a block walks."""
+    t, nx, ny, nz = shape
+    v = 128 // torch.finfo(dtype).bits
+    tzv = min(32, _pow2_at_least(-(-nz // v)))
+    ty = min(STACK_THREADS // tzv, STACK_ROWS, _pow2_at_least(ny))
+    tiles = t * -(-ny // ty) * -(-nz // (tzv * v))
+    slab = STACK_SLAB
+    while slab > 2 and tiles * -(-nx // slab) < STACK_MIN_BLOCKS:
+        slab //= 2
+    return tzv, ty, slab
+
+
+def _launch_stack(lib, kind, x, b, y, y2, diag, off, omega) -> None:
+    """One launch of kernel A's stack walk over ``x`` (a grid, or a stack
+    of grids), writing ``y`` (and ``y2``, the cast copy, for ``mv_cast``)."""
+    stack = x.shape if x.dim() == 4 else (1, *x.shape)
+    tzv, ty, slab = stack_geometry(stack, x.dtype)
+    rc = lib.stencil3d_apply_stack(
+        _KIND_CODE[kind], _DTYPE_CODE[x.dtype], _DTYPE_CODE[y.dtype],
+        x.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
+        None if y2 is None else y2.data_ptr(), *stack, tzv, ty, slab, diag,
+        off, 0.0 if omega is None else omega, build.stream(x))
+    build.check(lib, rc, f"stencil3d_apply[{kind}]")
 
 
 def _jacobi_dot_walk(lib, x, b, y, diag, off, omega) -> torch.Tensor:
@@ -235,7 +297,7 @@ def stencil3d_mv_cast_plain(x: torch.Tensor, *, diag: float, off: float,
                             out_dtype: torch.dtype
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(A x, x)``, both rounded to ``out_dtype``."""
-    _check_grid("x", x)
+    _check_grid("x", x, stack=True)
     y = _apply(x.to(_compute_dtype(x.dtype)), diag, off)
     return y.to(out_dtype), x.to(out_dtype)
 
@@ -244,23 +306,18 @@ def stencil3d_mv_cast(x: torch.Tensor, *, diag: float, off: float,
                       out_dtype: torch.dtype
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel A, kind ``mv_cast`` (replaces
-    ``stencil_pallas.stencil3d_mv_cast_pallas``): one read of ``x``, two
-    writes at ``out_dtype``."""
-    _check_grid("x", x)
+    ``stencil_pallas.stencil3d_mv_cast_pallas``): one read of ``x`` (a
+    grid or a stack of grids), two writes at ``out_dtype``."""
+    _check_grid("x", x, stack=True)
     cuda = build.on_cuda(x)
     _check_pair(x.dtype, out_dtype, cuda)
     if not cuda:
         return stencil3d_mv_cast_plain(x, diag=diag, off=off,
                                        out_dtype=out_dtype)
-    nx, ny, nz = x.shape
     lib = build.load("stencil3d")
     y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     c = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    rc = lib.stencil3d_apply(
-        _KIND_CODE["mv_cast"], _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
-        x.data_ptr(), None, y.data_ptr(), c.data_ptr(), None, None, nx, ny, nz,
-        diag, off, 0.0, build.stream(x))
-    build.check(lib, rc, "stencil3d_mv_cast")
+    _launch_stack(lib, "mv_cast", x, None, y, c, diag, off, None)
     build.count("stencil3d_mv_cast")
     return y, c
 

@@ -12,8 +12,8 @@ grid-shaped with the mesh dims leading: ``(nb, ni, lx, ny[, nz])`` or
 
 * Stencil applies and Jacobi sweeps exchange one boundary plane per
   split axis by ``ppermute`` before the interior is computed; the interior
-  is kernel A (3D: kind ``mv`` or ``jacobi``, one launch a tile) or kernel
-  E (2D: every tile in one launch) with zero external halos, and the halo
+  is one launch over every tile, of kernel A (3D: kind ``mv`` or
+  ``jacobi``) or kernel E (2D), with zero external halos, and the halo
   planes enter after it (linear in the taps: ``+off*halo`` for an apply,
   ``-omega*off*halo`` for a sweep).
 * The cycle coarsens every axis by 2 while each tile keeps an even extent
@@ -102,16 +102,15 @@ def _grid_spec(mesh):
 
 
 def _interior_jacobi(x, b, omega: float, nd: int, diag: float, off: float):
-    """``x + omega (b - A_interior x)`` on each tile: kernel A kind
-    ``jacobi`` a tile (3D), composed from kernel E (2D)."""
+    """``x + omega (b - A_interior x)`` on each tile: one launch of kernel
+    A kind ``jacobi`` over the stack of tiles (3D), composed from kernel E
+    (2D)."""
     if nd == 2:
         return x + omega * (b - sh.stack_apply(x, nd, diag, off))
-    xs = x.reshape(-1, *x.shape[-3:])
-    bs = b.reshape(-1, *b.shape[-3:])
-    return torch.stack([stencil3d_apply(t.contiguous(), u.contiguous(),
-                                        kind="jacobi", diag=diag, off=off,
-                                        omega=omega)
-                        for t, u in zip(xs, bs)]).reshape(x.shape)
+    y = stencil3d_apply(x.reshape(-1, *x.shape[-3:]).contiguous(),
+                        b.reshape(-1, *b.shape[-3:]).contiguous(),
+                        kind="jacobi", diag=diag, off=off, omega=omega)
+    return y.reshape(x.shape)
 
 
 def _make_halo_mv(mesh, diag: float, off: float, nd: int):

@@ -20,8 +20,8 @@ The mathematics of ``models.multisplitting`` laid out over a mesh
 
 Each shard's interior apply is a kernel launch over the whole shard
 stack: kernel E in 2D (``ops.stencil2d``; an s-step basis panel ``R = A
-S`` is its ``[spmm]`` launch), kernel A kind ``mv`` in 3D (one grid a
-launch, so one launch a shard), both with zero external halos; the halo
+S`` is its ``[spmm]`` launch), kernel A kind ``mv`` in 3D (``ops.stencil3d``
+on the ``(T, nx, ny, nz)`` stack of tiles), both with zero external halos; the halo
 rows are added after the apply, as JAX's ``.at[..., 0, :].add(off *
 top)``, and the halos are exchanged before it (JAX's overlap order).
 """
@@ -53,17 +53,15 @@ def stack_apply(g: torch.Tensor, nd: int, diag: float, off: float,
                 panel: bool = False) -> torch.Tensor:
     """The stencil apply with zero external halos on every grid of ``g``
     (its last ``nd`` axes a grid, the leading ones a stack of shards'
-    tiles): one launch of kernel E over the whole stack in 2D (``panel``
-    names an s-step basis launch), one launch of kernel A kind ``mv`` a
-    tile in 3D (kernel A takes one grid)."""
+    tiles): one launch over the whole stack, of kernel E in 2D (``panel``
+    names an s-step basis launch) or of kernel A kind ``mv`` in 3D."""
     if nd == 2:
         y = stencil2d_apply(g.reshape(-1, *g.shape[-2:]).contiguous(),
                             diag=diag, off=off, panel=panel)
         return y.reshape(g.shape)
-    tiles = g.reshape(-1, *g.shape[-3:])
-    return torch.stack([stencil3d_apply(t.contiguous(), kind="mv", diag=diag,
-                                        off=off)
-                        for t in tiles]).reshape(g.shape)
+    y = stencil3d_apply(g.reshape(-1, *g.shape[-3:]).contiguous(), kind="mv",
+                        diag=diag, off=off)
+    return y.reshape(g.shape)
 
 
 # ---------------------------------------------------------------------------
