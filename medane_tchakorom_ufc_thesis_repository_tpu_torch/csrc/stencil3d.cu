@@ -1377,21 +1377,21 @@ cudaError_t launch_jacobi_dot(const void* x, const void* b, void* y, void* parti
 #include "chebyshev_coarse.cuh"
 
 template <typename TC> struct Grid7 {
+    static constexpr int DIRS = 3;     // x, y, z
     int nx, ny, nz;
     TC diag, off;
     __host__ __device__ __forceinline__ int points() const { return nx * ny * nz; }
+    __host__ __device__ __forceinline__ int stride(int a) const {
+        return a == 0 ? ny * nz : a == 1 ? nz : 1;
+    }
     // bits: x-1, x+1, y-1, y+1, z-1, z+1 inside the grid
     __device__ __forceinline__ unsigned mask(int p) const {
         const int k = p % nz, j = (p / nz) % ny, i = p / (nz * ny);
         return (i > 0) | (i + 1 < nx) << 1 | (j > 0) << 2 | (j + 1 < ny) << 3 |
                (k > 0) << 4 | (k + 1 < nz) << 5;
     }
-    __device__ __forceinline__ TC apply(const TC* s, int p, unsigned m) const {
-        const int pl = ny * nz;
-        return stencil7(diag, off, s[p], m & 1 ? s[p - pl] : TC(0),
-                        m & 2 ? s[p + pl] : TC(0), m & 4 ? s[p - nz] : TC(0),
-                        m & 8 ? s[p + nz] : TC(0), m & 16 ? s[p - 1] : TC(0),
-                        m & 32 ? s[p + 1] : TC(0));
+    __device__ __forceinline__ TC combine(TC c, const TC (&nb)[6]) const {
+        return stencil7(diag, off, c, nb[0], nb[1], nb[2], nb[3], nb[4], nb[5]);
     }
 };
 

@@ -6,11 +6,14 @@ steps from the zero guess (``solvers/multigrid.vcycle``).  As a loop of
 PyTorch operations that is about six launches a step, 240 a visit and
 ~170,000 a 512^3 north-star solve.  Kernel M (``csrc/stencil3d.cu`` and
 ``csrc/stencil2d.cu``, device code in ``csrc/chebyshev_coarse.cuh``) runs
-all the steps of one grid in one thread block, with the grid in shared
-memory, and a stack of 2D grids (the strips of inner ``pc='mg'``) as a
-batch of blocks.  It replaces no Pallas kernel: in the JAX package the
-loop is ``chebyshev``'s ``lax.fori_loop``, compiled by XLA inside
-``_df_fused_program``.
+all the steps of one grid in one launch, and a stack of 2D grids (the
+strips of inner ``pc='mg'``) as a batch.  A grid of at most 64 points
+with fewer than 32 a row or plane (the coarsest grids of the north-stars
+and of the 2D strips) takes one warp, whose lanes exchange d by shuffles
+with no block barrier; any other grid takes one thread block.  The
+launcher chooses the path from the grid's shape.  It replaces no Pallas
+kernel: in the JAX package the loop is ``chebyshev``'s ``lax.fori_loop``,
+compiled by XLA inside ``_df_fused_program``.
 
 The plain version is that loop, ``chebyshev_steps`` with the operator's
 apply (kernel A or E on the card, their plain versions on the CPU) as

@@ -8,6 +8,9 @@ zeros: a single grid (``Stencil2D.mv``), the stack of multisplitting strips
 (``StackedStencil2D.diag_mv``), or an ``(s, m, n)`` basis panel
 (``StackedStencil2D.full_mv`` over the s-step basis, ``R = A S``).
 
+The kernel walks row tiles staged in shared memory with 16-byte copies;
+its launcher chooses the tile and the slab of rows a block walks from the
+shape and dtype.
 The wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  Storage and arithmetic are f32
 or f64 on both paths; bf16 storage (the level-0 applies of a bf16
