@@ -14,8 +14,8 @@ Run from the root of a checkout:
 (With phase names as arguments, of ``PHASES`` below, only those phases
 run, for work on one of them; such a run prints no result lines.
 ``python3 chip_smoke.py kernels`` alone builds every kernel and holds
-kernels A-D, among them the warp walks of B and of A's ``jacobi_dot``,
-against their plain versions.)
+kernels A-D, among them the warp walks of B and of A's ``jacobi_dot``
+and A's ``mv_dot`` on the stack walk, against their plain versions.)
 
 It imports the port (``medane_tchakorom_ufc_thesis_repository_tpu_torch``)
 from this checkout and nothing of JAX, and:
@@ -31,7 +31,13 @@ from this checkout and nothing of JAX, and:
    a multiple of its tile) and on grids at an odd offset (its scalar
    path), kernel B at the same shapes and at the W-cycle's 256^3, 64^3
    and 16^3, bit for bit; A's ``jacobi_dot`` also at 256^3, its y bit
-   for bit the kind ``jacobi``'s and two launches bit-equal; kernel E
+   for bit the kind ``jacobi``'s and two launches bit-equal; A's
+   ``mv_dot`` also at 256^3 and on a 9x10x64 grid one value past 16
+   bytes, in every dtype pair and f64, its y bit for bit the kind
+   ``mv``'s, its dot bit for bit kernel J's with beta 0 and p 0 (x and y
+   of one type) or the same x's into x's own type (the pairs that mix),
+   two launches bit-equal, and its device time at 512^3 and 256^3 beside
+   ``mv``'s and that of ``mv`` + an f32 ``torch.dot``; kernel E
    (the 2D apply) at 8192^2, the two 2048x4096 strips of 4096^2, an s=4 panel
    of 4096^2, 3x37x130 and 4x4 in f32 and f64; kernels F and G (VecMDot
    and VecMAXPY) on the GMRES(20) basis of 4096^2 strips, (2, 21, 2^23),
@@ -64,8 +70,8 @@ from this checkout and nothing of JAX, and:
    at 512^3 and 8192^2 and the odd shapes in f32 and f64: y must have the
    bits of the operator's ``mv``, the norm agree to 1e-5, and two
    launches give equal bits.  No one PyTorch call computes B, A's
-   ``jacobi_dot``, J, K or L; beside each the composition the port would
-   run without it is timed;
+   ``mv_dot`` or ``jacobi_dot``, J, K or L; beside each the composition
+   the port would run without it is timed;
 4a. coarse phase: kernel M (the multigrid cycle's coarse Chebyshev solve
    in one launch) against its plain version and against the loop it
    replaces (``chebyshev(A.mv, b, maxiter=40).x``, kernel A or E as the
@@ -87,7 +93,8 @@ from this checkout and nothing of JAX, and:
    device-busy share comes from the profiler and from the graphs'
    replays timed alone; the same solve through ``df_iterative_refinement``
    around ``cg`` (no graph) runs in turns with the graphed one, with equal
-   PCG counts and x equal to the bit.  At 512^3 one more eager run,
+   PCG counts and x equal to the bit; a digest of x's bytes (sha256)
+   is printed, to compare two trees' solutions.  At 512^3 one more eager run,
    neither counted nor timed, records the launches of kernels A-D and M
    by grid, each grid's launch then timed alone in a CUDA graph;
 5a. fused-direction phase, 512^3: ``df_iterative_refinement`` around
@@ -300,6 +307,9 @@ ODD = (37, 24, 130)
 # multiple of every type's vector, for a stack one value past 16 bytes
 ODD_STACK = (3, 37, 24, 130)
 OFFSET_STACK = (3, 9, 10, 64)
+# kernel A's dot walk on one grid one value past 16 bytes (its scalar path
+# where nz is a multiple of every type's vector)
+OFFSET_GRID = OFFSET_STACK[1:]
 ODD_EVEN = (38, 24, 130)   # kernels B and C need even dims
 TINY = (4, 4, 4)
 # kernel C's further shapes: 2^3, the cycle's last prolongation (8^3 from
@@ -609,6 +619,45 @@ def jacobi_dot_composition(torch, k, x, b, odt):
     return call
 
 
+def mv_dot_composition(torch, k, x, odt):
+    """What the port would run without the kind mv_dot: kind mv, then an
+    f32 ``torch.dot`` of x and y."""
+    def call():
+        y = k.stencil3d_apply(x, kind="mv", diag=DIAG, off=OFF, out_dtype=odt)
+        return y, torch.dot(x.reshape(-1).float(), y.reshape(-1).float())
+    return call
+
+
+def hold_mv_dot(torch, k, x, odt, what: str) -> None:
+    """The kind mv_dot (kernel A's dot walk): y has the bits of the kind mv
+    on the same x; the dot has the bits of kernel J's with beta = 0 and p
+    = 0 (then p' = x, and J's A p' the bits of y) where x and y share a
+    type, and of the same x's mv_dot into x's own type where they do not
+    (the dot is taken before the cast); two launches give equal bits, y
+    and dot."""
+    def call(out):
+        return k.stencil3d_apply(x, kind="mv_dot", diag=DIAG, off=OFF,
+                                 out_dtype=out)
+    y1, d1 = call(odt)
+    y2, d2 = call(odt)
+    ym = k.stencil3d_apply(x, kind="mv", diag=DIAG, off=OFF, out_dtype=odt)
+    ap = None
+    if odt == x.dtype:
+        _, ap, dj = k.stencil3d_axpy_mv_dot(x, torch.zeros_like(x), 0.0,
+                                            diag=DIAG, off=OFF)
+        ref, ref_what = dj.to(torch.float32), "kernel J's (beta 0, p 0)"
+    else:
+        ref, ref_what = call(x.dtype)[1], f"mv_dot's into {x.dtype}"
+    torch.cuda.synchronize()
+    check(torch, f"mv_dot y against mv {what}", y1, ym, "bits")
+    check(torch, f"mv_dot y, two launches {what}", y2, y1, "bits")
+    check(torch, f"mv_dot dot, two launches {what}", d2, d1, "bits")
+    check(torch, f"mv_dot dot against {ref_what} {what}", d1, ref, "bits")
+    if ap is not None:
+        check(torch, f"mv_dot y against kernel J's A p' {what}", ap, y1,
+              "bits")
+
+
 def hold_jacobi_dot(torch, k, x, b, odt, what: str) -> None:
     """The kind jacobi_dot on f32/bf16 storage (its own warp walk): y has
     the bits of the kind jacobi on the same inputs, and two launches give
@@ -624,6 +673,21 @@ def hold_jacobi_dot(torch, k, x, b, odt, what: str) -> None:
     check(torch, f"jacobi_dot y against jacobi {what}", y1, yj, "bits")
     check(torch, f"jacobi_dot y, two launches {what}", y2, y1, "bits")
     check(torch, f"jacobi_dot dot, two launches {what}", d2, d1, "bits")
+
+
+def mv_dot_device(torch, k, x, shape) -> None:
+    """Device ms (``graph_ms``) of the kind mv_dot on the f32 grid x,
+    beside the kind mv and the composition mv + f32 ``torch.dot``, and
+    the share of mv_dot's bound (x read once, y written once)."""
+    least = bound(2 * nbytes(x), 15 * x.numel())["bound_ms"]
+    dot = graph_ms(torch, lambda: k.stencil3d_apply(
+        x, kind="mv_dot", diag=DIAG, off=OFF))
+    mv = graph_ms(torch, lambda: k.stencil3d_apply(x, kind="mv", diag=DIAG,
+                                                   off=OFF))
+    comp = graph_ms(torch, mv_dot_composition(torch, k, x, x.dtype))
+    log(f"stencil3d_apply[mv_dot] f32 {shape} device: mv_dot {dot:.4f} ms "
+        f"({least / dot:.0%} of its bound {least:.4f} ms), mv {mv:.4f} ms, "
+        f"mv + torch.dot {comp:.4f} ms")
 
 
 STACK_KINDS = ("mv", "residual", "jacobi", "mv_cast")
@@ -729,7 +793,8 @@ def kernel_phase(torch, k, dev) -> dict:
             x = rand(shape, xd)
             b = rand(shape, xd)
             odt = dt[od]
-            for kind in (k.KINDS if shape != LEVEL0 else ("jacobi_dot",)):
+            for kind in (k.KINDS if shape != LEVEL0 else
+                         ("mv_dot", "jacobi_dot")):
                 ex = (b,) if kind in ("residual", "jacobi", "jacobi_dot") else ()
                 om = OMEGA if kind.startswith("jacobi") else None
                 tols = ((od, "dot") if kind.endswith("_dot") else (od,))
@@ -745,10 +810,16 @@ def kernel_phase(torch, k, dev) -> dict:
                     flops_per_point=13 + 2 * len(ex) + 2 * kind.endswith("dot"),
                     library=(stencil_conv(torch, x[None], DIAG, OFF)
                              if kind == "mv" and xd == od == "f32" else
+                             mv_dot_composition(torch, k, x, odt)
+                             if kind == "mv_dot" else
                              jacobi_dot_composition(torch, k, x, b, odt)
                              if kind == "jacobi_dot" else None))
                 if kind == "jacobi_dot" and xd != "f64":
                     hold_jacobi_dot(torch, k, x, b, odt, f"{shape} {xd}->{od}")
+                if kind == "mv_dot":
+                    hold_mv_dot(torch, k, x, odt, f"{shape} {xd}->{od}")
+            if shape in (FULL, LEVEL0) and xd == od == "f32":
+                mv_dot_device(torch, k, x, shape)
             if shape == LEVEL0:
                 del x, b
                 continue
@@ -761,6 +832,18 @@ def kernel_phase(torch, k, dev) -> dict:
                 (od, od), inputs=(x,))
             del x, b
         log(f"kernel A: {shape} ok")
+    for xd, od in combos + [("f64", "f64")]:
+        n = math.prod(OFFSET_GRID)
+        x = rand((n + 1,), xd)[1:].view(OFFSET_GRID)
+        run("stencil3d_apply[mv_dot]", OFFSET_GRID, (xd, od),
+            lambda: k.stencil3d_apply(x, kind="mv_dot", diag=DIAG, off=OFF,
+                                      out_dtype=dt[od]),
+            lambda: k.stencil3d_apply_plain(x, kind="mv_dot", diag=DIAG,
+                                            off=OFF, out_dtype=dt[od]),
+            (od, "dot"), x)
+        hold_mv_dot(torch, k, x, dt[od], f"{OFFSET_GRID} {xd}->{od} offset 1")
+        del x
+    log(f"kernel A mv_dot: {OFFSET_GRID} at offset 1 ok")
     # a stack of odd grids (the stack walk's scalar path in f32 and bf16),
     # a stack one value past 16 bytes (its scalar path in f64 too), and
     # the stacks of tiles of the sharded paths
@@ -799,9 +882,13 @@ def kernel_phase(torch, k, dev) -> dict:
                     k.stencil3d_apply(x, b, kind="residual", diag=DIAG,
                                       off=OFF)))
                 bnd = bound(nbytes(x, b) * 17 / 16, 15 * x.numel())["bound_ms"]
+                device = graph_ms(torch, lambda: k.stencil3d_residual_restrict(
+                    x, b, diag=DIAG, off=OFF, scale=4.0))
                 log(f"stencil3d_residual_restrict f32 512^3: kernel {ms:.3f} "
-                    f"ms, plain {plain_ms:.3f} ms, composition (A residual + "
-                    f"cell sums) {comp_ms:.3f} ms, bound {bnd:.3f} ms")
+                    f"ms (device {device:.4f} ms, {bnd / device:.0%} of its "
+                    f"bound), plain {plain_ms:.3f} ms, composition (A "
+                    f"residual + cell sums) {comp_ms:.3f} ms, bound "
+                    f"{bnd:.3f} ms")
             run("stencil3d_prolong_jacobi", shape, (d, d),
                 lambda: k.stencil3d_prolong_jacobi(x, b, e, diag=DIAG, off=OFF,
                                                    omega=OMEGA),
@@ -1550,6 +1637,8 @@ def slice_phase(torch, port, k, dev) -> dict:
             del calls
 
         xhi, xlo = res.x
+        log(f"{n}^3: solution digest (sha256 of the bytes of xhi, xlo) "
+            f"{digest(torch, xhi)} {digest(torch, xlo)}")
         x64 = xhi.double() + xlo.double()
         b64 = bhi.double()
         r = b64 - k.stencil3d_apply_plain(x64, kind="mv", diag=op.diag,
@@ -1589,6 +1678,15 @@ def slice_phase(torch, port, k, dev) -> dict:
 # ---------------------------------------------------------------------------
 # Fused-direction, 2D north-star and cycle-precision phases
 # ---------------------------------------------------------------------------
+
+def digest(torch, t) -> str:
+    """sha256 of a tensor's bytes, in its layout: two runs that give equal
+    bits give equal digests."""
+    import hashlib
+
+    raw = t.detach().contiguous().view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(raw).hexdigest()[:16]
+
 
 def f64_check(torch, op, xhi, xlo, bhi, probe):
     """``(||b - A x|| / ||b||, max|x - 1|, ||b - A probe||)`` in f64 on the
@@ -2226,7 +2324,9 @@ def routed_case(torch, entry, what, kernel, plain, library, terms, n_bytes,
     entry.update(ms=median_ms(torch, kernel), plain_ms=median_ms(torch, plain),
                  library_ms=library_ms(torch, library, what),
                  **bound(n_bytes, flops))
-    log(f"{what}: ok, max error {e:.2e}, kernel {entry['ms']:.3f} ms, plain "
+    device = graph_ms(torch, kernel)
+    log(f"{what}: ok, max error {e:.2e}, kernel {entry['ms']:.3f} ms (device "
+        f"{device:.4f} ms, {entry['bound_ms'] / device:.0%} of its bound), plain "
         f"{entry['plain_ms']:.3f} ms, library {entry['library_ms']}, bound "
         f"{entry['bound_ms']:.3f} ms ({entry['bound_by']})")
 
@@ -2812,8 +2912,10 @@ def stacked_phase(torch, port, dev, card) -> None:
             raise AssertionError(f"{label}: converged {res.converged}, f64 "
                                  f"relative residual {rel:.3e} (rtol {rtol})")
         if profile:
+            # the card's activity alone: recording the eager solve's host
+            # operations took 50 s of the script's time for the DIA cell
             busy_share(torch, f"{label} [{card}]", lambda: solve(op, b),
-                       statistics.median(times) * 1e3)
+                       statistics.median(times) * 1e3, host_ops=False)
         return res
 
     def kernel_case(what, kernel, plain, library, terms, n_bytes, flops):
@@ -2823,7 +2925,10 @@ def stacked_phase(torch, port, dev, card) -> None:
         ms, plain_ms = median_ms(torch, kernel), median_ms(torch, plain)
         lib = library_ms(torch, library, what)
         bnd = bound(n_bytes, flops)
-        say(f"{what}: ok, max error {err:.2e}, kernel {ms:.3f} ms, plain "
+        device = graph_ms(torch, kernel)
+        say(f"{what}: ok, max error {err:.2e}, kernel {ms:.3f} ms (device "
+            f"{device:.4f} ms, {100 * bnd['bound_ms'] / device:.0f}% of its "
+            f"bound), plain "
             f"{plain_ms:.3f} ms, library {lib if lib is None else round(lib, 3)}"
             f" ms, bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}), "
             f"{100 * bnd['bound_ms'] / ms:.0f}% of it")

@@ -6,10 +6,11 @@
 // cycle's coarse Chebyshev solve in one launch (kernel M, whose device code
 // is in chebyshev_coarse.cuh, shared with stencil2d.cu).  Kernel A's kinds
 // without a sum (mv, residual, jacobi, mv_cast) take a stack of grids in
-// one launch and stage each plane's tile in shared memory (stack_kernel);
-// kernels B and C, and kernel A's kind jacobi_dot on f32 and bf16 storage,
-// are barrier-free warp walks; A's other kinds with a sum, and J and K,
-// walk one thread a (y, z) column.
+// one launch and stage each plane's tile in shared memory (stack_kernel),
+// and its kind mv_dot walks the same staged tiles on one grid; kernels B
+// and C, and kernel A's kind jacobi_dot on f32 and bf16 storage, are
+// barrier-free warp walks; A's jacobi_dot on f64, and J and K, walk one
+// thread a (y, z) column.
 //
 // Plain C interface, bound with ctypes by ops/stencil3d.py.  Every entry
 // point launches on the stream it is given, allocates nothing, and returns
@@ -61,13 +62,13 @@ __device__ __forceinline__ TC stencil7(TC diag, TC off, TC c, TC xm, TC xp,
 // Replaces ops/stencil_pallas.py:stencil3d_apply_pallas (_kernel3d, kinds
 // mv, mv_dot, residual, jacobi, jacobi_dot) and stencil3d_mv_cast_pallas
 // (_kernel3d_mvc, here the kind mv_cast).  The kinds without a sum (mv,
-// residual, jacobi, mv_cast) run stack_kernel below, over a stack of grids;
-// this column walk serves the kinds with a sum, on one grid: mv_dot, and
-// jacobi_dot on f64 storage (f32 and bf16 take their own walk,
-// stencil3d_jacobi_dot below).
+// residual, jacobi, mv_cast) run stack_kernel below, over a stack of grids,
+// and so does mv_dot, on one grid, with this walk's summation order; this
+// column walk serves jacobi_dot on f64 storage (f32 and bf16 take their own
+// walk, stencil3d_jacobi_dot below) and kernel K.
 //
-// Bound: memory bytes.  One read of x and one write of y: 8 bytes a point
-// for an f32 mv_dot, 1.07 GB at 512^3, 0.32 ms at 3.35 TB/s.
+// Bound: memory bytes.  Reads of x and b and one write of y: 24 bytes a
+// point for an f64 jacobi_dot.
 //
 // Design: one thread per (y, z) column, threads along z so that a warp
 // reads 32 neighbouring floats; each thread walks a slab of SLAB x planes
@@ -84,13 +85,15 @@ __device__ __forceinline__ TC stencil7(TC diag, TC off, TC c, TC xm, TC xp,
 // Bound: memory bytes, reads of x and b and one write, 12 bytes a point in
 // f32 (1.61 GB at 512^3, 0.48 ms).
 //
-// The dot kinds (x.Ax for mv_dot, b.x' for jacobi_dot, both on the
-// arithmetic-type value before its cast to the output type; the sum of
-// (b - y)^2 for mv_norm) write one partial sum per block, in apply_grid's
-// layout, which kernel J shares; sum_partials adds the partials in a fixed
-// order.  No float atomics, so a dot is the same from run to run and CG's
-// iteration counts repeat.  (The Pallas kernel carried the sum across its
-// sequential grid, which Hopper's blocks do not have.)
+// The dot kinds (b.x' for jacobi_dot, on the arithmetic-type value before
+// its cast to the output type; the sum of (b - y)^2 for mv_norm) write one
+// partial sum per block, in apply_grid's layout, which kernel J and the dot
+// walk of mv_dot share (x.Ax, summed in this walk's order: a thread's
+// products over the block's planes by dot_step, then block_sum);
+// sum_partials adds the partials in a fixed order.  No float atomics, so a
+// dot is the same from run to run and CG's iteration counts repeat.  (The
+// Pallas kernel carried the sum across its sequential grid, which Hopper's
+// blocks do not have.)
 // ---------------------------------------------------------------------------
 
 constexpr int BZ = 32;      // threads along z
@@ -98,6 +101,17 @@ constexpr int BY = 8;       // threads along y
 constexpr int SLAB = 16;    // x planes walked by one thread
 constexpr int NT = BZ * BY;
 constexpr int FINISH_THREADS = 1024;
+
+// acc + a b, rounded once: the dots of kind mv_dot, of kernel J and of the
+// f64 jacobi_dot add their products so (the column walk's acc += a * b,
+// which nvcc contracts into an FMA, written out), so that two kernels
+// summing the same products in the same order agree in every bit
+__device__ __forceinline__ float dot_step(float a, float b, float acc) {
+    return __fmaf_rn(a, b, acc);
+}
+__device__ __forceinline__ double dot_step(double a, double b, double acc) {
+    return __fma_rn(a, b, acc);
+}
 
 // Sum of v over the block, valid in thread 0.  Fixed order: warp shuffles,
 // then the warp sums in warp order.
@@ -144,11 +158,12 @@ __global__ void __launch_bounds__(NT) apply_kernel(
             if (KIND == JACOBI_DOT) {
                 const TC bv = load(b, idx);
                 v = cur + omega * (bv - v);
-                acc += bv * v;
-            } else if (KIND == MV_DOT) {
-                acc += cur * v;
+                acc = dot_step(bv, v, acc);
             } else if (KIND == MV_NORM) {
-                // x, b and y share one type here, so v is y's value
+                // x, b and y share one type here, so v is y's value.  The
+                // norm is held against no other kernel's bits, and written
+                // as dot_step it ran 8% slower (the same FFMA, another
+                // schedule), so it keeps its contracted form.
                 const TC d = load(b, idx) - v;
                 acc += d * d;
             }
@@ -220,7 +235,8 @@ cudaError_t launch_apply(const void* x, const void* b, void* y, void* partials,
 // it has the bits of the two plain passes z + (beta * p).  Outside the grid
 // p' is 0 by the index tests, not by reading padded memory.  The apply is
 // stencil7, as in kernel A, and the dot's partials have kernel A's layout
-// and order: on the f32 p' the triple is what axpy + mv_dot gives.  With
+// and order (dot_step, block_sum; mv_dot's walk keeps the same): on the
+// f32 p' the triple is what axpy + mv_dot gives.  With
 // bf16 storage p' stays f32 for the stencil and the dot and is rounded
 // only where it is stored, as in the Pallas kernel.  What the simple design
 // gives up: ten loads a point through the cache instead of a staged tile.
@@ -266,7 +282,7 @@ __global__ void __launch_bounds__(NT) axpy_mv_dot_kernel(
             const TC zw = k > 0 ? pn_at(z, p, beta, idx - 1) : TC(0);
             const TC ze = k + 1 < nz ? pn_at(z, p, beta, idx + 1) : TC(0);
             const TC v = stencil7(diag, off, cur, prev, next, yn, ys, zw, ze);
-            acc += cur * v;
+            acc = dot_step(cur, v, acc);
             store(pn, idx, cur);
             store(ap, idx, v);
             prev = cur;
@@ -928,6 +944,26 @@ cudaError_t launch_residual_restrict(const void* x, const void* b, void* rc, int
 // up: a slab re-reads its two neighbouring x planes (1.25x the x reads at
 // a slab of 8, mostly from L2), and no TMA: the copies cost a thread's
 // instructions, one or two a plane.
+//
+// Kernel A, kind mv_dot, is this walk on one grid: y = A x and x . A x (the
+// kind mv_dot of ops/stencil_pallas.py:stencil3d_apply_pallas), PCG's
+// p . A p, once an iteration of the north-star's PCG.  Bound: memory
+// bytes, one read of x and one write of y, 8 bytes a point in f32 (1.07 GB
+// at 512^3, 0.321 ms at 3.35 TB/s).  Its y is kind mv's.  Its dot keeps the
+// column walk's summation order bit for bit, so that PCG's p . A p, and
+// with it the solver's iterates, are what they were when apply_kernel ran
+// mv_dot: the grid is cut into boxes of BZ z points by BY rows by SLAB x
+// planes, the column walk's blocks; each point's products are summed over
+// the box's planes in x order by dot_step, one accumulator a point; the 32
+// z sums of a box row are added in block_sum's shuffle-down tree, its steps
+// of V points and more by shuffles between threads (thread offsets 4, 2, 1
+// in f32) and the smaller ones in registers; then the BY row sums in the
+// tree of block_sum's second stage, zeros included (dot_flush); a box's sum
+// is its partial, at the column walk's index, and sum_partials adds the
+// partials as before.  So a tile is made of whole boxes and a slab of whole
+// boxes (ops/stencil3d.dot_geometry; the launcher refuses any other), and a
+// block flushes its boxes every SLAB planes, one more barrier each.  Points
+// outside the grid add nothing, boxes outside it write no partial.
 // ---------------------------------------------------------------------------
 
 constexpr int ST_THREADS = 256;   // threads a block at most (ops/stencil3d.py STACK_THREADS)
@@ -1127,12 +1163,61 @@ __device__ __forceinline__ void stack_stage(T* slot, const T* __restrict__ x,
     }
 }
 
+// threads of a box row in the dot walk, and the box rows of a block at most
+template <typename T> struct BoxOf {
+    enum { threads = BZ / VecOf<T>::value, rows = ST_THREADS / threads };
+};
+
+// mv_dot's partials of a block's boxes after plane i, the last plane of a
+// box: acc holds a thread's V sums over the box's planes; zeroed after
+template <typename TX>
+__device__ __forceinline__ void dot_flush(typename Compute<TX>::type (&acc)[VecOf<TX>::value],
+                                          const StackTile& t, int64_t i,
+                                          typename Compute<TX>::type* __restrict__ partials) {
+    typedef typename Compute<TX>::type TC;
+    constexpr int V = VecOf<TX>::value, BT = BoxOf<TX>::threads;
+    static_assert(BY == 8, "the second stage below adds 8 row sums");
+    __shared__ TC rows[BoxOf<TX>::rows];     // a box row's sum, by row and box
+    // block_sum's first stage over the box row's BZ z points: point p takes
+    // p + o, which for o >= V is the same place in the vector of the thread
+    // o / V further along.  Plain adds, as block_sum's: with no product in
+    // them there is nothing to contract.
+#pragma unroll
+    for (int o = BZ / 2; o >= V; o >>= 1)
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+            acc[e] += __shfl_down_sync(0xffffffffu, acc[e], o / V);
+#pragma unroll
+    for (int o = V / 2; o >= 1; o >>= 1)
+#pragma unroll
+        for (int e = 0; e < o; ++e) acc[e] += acc[e + o];
+    const int nbz = t.tz / BZ;               // boxes along z in the tile
+    if (threadIdx.x % BT == 0) rows[threadIdx.y * nbz + threadIdx.x / BT] = acc[0];
+    __syncthreads();
+    const int u = threadIdx.x + threadIdx.y * t.tzv;
+    if (u < t.ty / BY * nbz) {
+        const int by = u / nbz, bz = u % nbz;
+        // block_sum's second stage: the 8 warp sums in lanes 0-7, zeros in
+        // lanes 8-31, so each meets two zeros before the tree of the 8
+        TC a[BY];
+#pragma unroll
+        for (int r = 0; r < BY; ++r) a[r] = (rows[(by * BY + r) * nbz + bz] + TC(0)) + TC(0);
+        const TC sum = ((a[0] + a[4]) + (a[2] + a[6])) + ((a[1] + a[5]) + (a[3] + a[7]));
+        const int64_t gx = (t.nz + BZ - 1) / BZ, gy = (t.ny + BY - 1) / BY;
+        const int64_t px = t.k0 / BZ + bz, py = t.j0 / BY + by;
+        if (px < gx && py < gy) partials[px + gx * (py + gy * (i / SLAB))] = sum;
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = TC(0);
+}
+
 template <int KIND, typename TX, typename TO, bool VEC>
 __global__ void __launch_bounds__(ST_THREADS, ST_RESIDENT) stack_kernel(
     const TX* __restrict__ x, const TX* __restrict__ b, TO* __restrict__ y,
-    TO* __restrict__ y2, int64_t nx, int64_t ny, int64_t nz, int64_t slab,
-    int64_t nslab, int64_t ntz, int64_t nty, typename Compute<TX>::type diag,
-    typename Compute<TX>::type off, typename Compute<TX>::type omega) {
+    TO* __restrict__ y2, typename Compute<TX>::type* __restrict__ partials, int64_t nx,
+    int64_t ny, int64_t nz, int64_t slab, int64_t nslab, int64_t ntz, int64_t nty,
+    typename Compute<TX>::type diag, typename Compute<TX>::type off,
+    typename Compute<TX>::type omega) {
     typedef typename Compute<TX>::type TC;
     constexpr int V = VecOf<TX>::value;
     constexpr bool RHS = KIND == RESIDUAL || KIND == JACOBI;
@@ -1171,6 +1256,10 @@ __global__ void __launch_bounds__(ST_THREADS, ST_RESIDENT) stack_kernel(
     const int own = (threadIdx.y + 1) * t.w + V + threadIdx.x * V;   // in a slot
     const int64_t j = t.j0 + threadIdx.y, k = t.k0 + (int64_t)threadIdx.x * V;
     const bool owns = j < ny && k < nz;
+    const int64_t left = nz - k;    // of the thread's V points, those in the grid
+    TC acc[V];                      // mv_dot: its points' sums over a box's planes
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = TC(0);
     uint4 prev = vec_at(slot(i0 - 1) + own), cur = vec_at(slot(i0) + own);
     for (int64_t i = i0; i < i1; ++i) {
         stage_wait<ST_RING - 3>();  // plane i + 1 is in
@@ -1197,19 +1286,23 @@ __global__ void __launch_bounds__(ST_THREADS, ST_RESIDENT) stack_kernel(
                 v = value_of<TX>(bv, e) - v;
             } else if (KIND == JACOBI) {
                 v = c + omega * (value_of<TX>(bv, e) - v);
+            } else if (KIND == MV_DOT) {
+                if (owns && e < left) acc[e] = dot_step(c, v, acc[e]);
             }
             out[e] = v;
         }
         if (owns) {
             const int64_t q = grid + i * t.plane + j * nz + k;
-            store_out<VEC>(y + q, out, nz - k);
+            store_out<VEC>(y + q, out, left);
             if (KIND == MV_CAST) {
                 TC cv[V];
 #pragma unroll
                 for (int e = 0; e < V; ++e) cv[e] = value_of<TX>(cur, e);
-                store_out<VEC>(y2 + q, cv, nz - k);
+                store_out<VEC>(y2 + q, cv, left);
             }
         }
+        if constexpr (KIND == MV_DOT)
+            if ((i + 1) % SLAB == 0 || i + 1 == i1) dot_flush<TX>(acc, t, i, partials);
         prev = cur;
         cur = next;
     }
@@ -1218,33 +1311,58 @@ __global__ void __launch_bounds__(ST_THREADS, ST_RESIDENT) stack_kernel(
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// tzv, ty, slab within the stack walk's limits (ST_THREADS, ST_ROWS)
+bool stack_fits(int tzv, int ty, int slab) {
+    return tzv >= 1 && tzv <= 32 && !(tzv & (tzv - 1)) && ty >= 1 && ty <= ST_ROWS &&
+           tzv * ty <= ST_THREADS && slab >= 1;
+}
+
 template <int KIND, typename TX, typename TO>
-cudaError_t launch_stack(const void* x, const void* b, void* y, void* y2, int64_t t,
-                         int64_t nx, int64_t ny, int64_t nz, int tzv, int ty, int slab,
-                         double diag, double off, double omega, cudaStream_t s) {
+cudaError_t launch_stack(const void* x, const void* b, void* y, void* y2, void* partials,
+                         int64_t t, int64_t nx, int64_t ny, int64_t nz, int tzv, int ty,
+                         int slab, double diag, double off, double omega, cudaStream_t s) {
     typedef typename Compute<TX>::type TC;
     constexpr int V = VecOf<TX>::value;
-    constexpr bool RHS = KIND == RESIDUAL || KIND == JACOBI;
+    constexpr bool RHS = KIND == RESIDUAL || KIND == JACOBI, DOT = KIND == MV_DOT;
     const int tz = tzv * V;
+    // the dot walk: one grid, a tile and a slab of whole boxes
+    if (DOT && (t != 1 || tz % BZ || ty % BY || slab % SLAB)) return cudaErrorInvalidValue;
     const int64_t nslab = (nx + slab - 1) / slab, ntz = (nz + tz - 1) / tz,
                   nty = (ny + ty - 1) / ty;
     const int64_t blocks = t * nslab * ntz * nty;
     const size_t ring =
         (size_t)ST_RING * ((ty + 2) * (tz + 2 * V) + (RHS ? ty * tz : 0)) * sizeof(TX);
-    if (blocks > 0x7fffffff || ring > 48 * 1024) return cudaErrorInvalidValue;
+    const size_t rows = DOT ? BoxOf<TX>::rows * sizeof(TC) : 0;
+    if (blocks > 0x7fffffff || ring + rows > 48 * 1024) return cudaErrorInvalidValue;
     const bool vec = nz % V == 0 && aligned16(x) && (!RHS || aligned16(b)) && aligned16(y) &&
                      (KIND != MV_CAST || aligned16(y2));
     const dim3 block(tzv, ty);
     if (vec)
         stack_kernel<KIND, TX, TO, true><<<(unsigned)blocks, block, ring, s>>>(
             static_cast<const TX*>(x), static_cast<const TX*>(b), static_cast<TO*>(y),
-            static_cast<TO*>(y2), nx, ny, nz, slab, nslab, ntz, nty, (TC)diag, (TC)off,
-            (TC)omega);
+            static_cast<TO*>(y2), static_cast<TC*>(partials), nx, ny, nz, slab, nslab, ntz,
+            nty, (TC)diag, (TC)off, (TC)omega);
     else
         stack_kernel<KIND, TX, TO, false><<<(unsigned)blocks, block, ring, s>>>(
             static_cast<const TX*>(x), static_cast<const TX*>(b), static_cast<TO*>(y),
-            static_cast<TO*>(y2), nx, ny, nz, slab, nslab, ntz, nty, (TC)diag, (TC)off,
-            (TC)omega);
+            static_cast<TO*>(y2), static_cast<TC*>(partials), nx, ny, nz, slab, nslab, ntz,
+            nty, (TC)diag, (TC)off, (TC)omega);
+    return cudaGetLastError();
+}
+
+// Kind mv_dot: the dot walk, then sum_partials over its partials (as many
+// as apply_grid has blocks)
+template <typename TX, typename TO>
+cudaError_t launch_mv_dot(const void* x, void* y, void* partials, void* dot, int64_t nx,
+                          int64_t ny, int64_t nz, int tzv, int ty, int slab, double diag,
+                          double off, cudaStream_t s) {
+    typedef typename Compute<TX>::type TC;
+    const cudaError_t err = launch_stack<MV_DOT, TX, TO>(
+        x, nullptr, y, nullptr, partials, 1, nx, ny, nz, tzv, ty, slab, diag, off, 0.0, s);
+    if (err != cudaSuccess) return err;
+    const dim3 g = apply_grid(nx, ny, nz);
+    sum_partials<TC><<<1, FINISH_THREADS, 0, s>>>(
+        static_cast<const TC*>(partials), (int64_t)g.x * g.y * g.z, static_cast<TC*>(dot));
     return cudaGetLastError();
 }
 
@@ -1254,13 +1372,13 @@ cudaError_t dispatch_stack(int kind, const void* x, const void* b, void* y, void
                            int slab, double diag, double off, double omega, cudaStream_t s) {
     switch (kind) {
         case MV:
-            return launch_stack<MV, TX, TO>(x, b, y, y2, t, nx, ny, nz, tzv, ty, slab, diag, off, omega, s);
+            return launch_stack<MV, TX, TO>(x, b, y, y2, nullptr, t, nx, ny, nz, tzv, ty, slab, diag, off, omega, s);
         case RESIDUAL:
-            return launch_stack<RESIDUAL, TX, TO>(x, b, y, y2, t, nx, ny, nz, tzv, ty, slab, diag, off, omega, s);
+            return launch_stack<RESIDUAL, TX, TO>(x, b, y, y2, nullptr, t, nx, ny, nz, tzv, ty, slab, diag, off, omega, s);
         case JACOBI:
-            return launch_stack<JACOBI, TX, TO>(x, b, y, y2, t, nx, ny, nz, tzv, ty, slab, diag, off, omega, s);
+            return launch_stack<JACOBI, TX, TO>(x, b, y, y2, nullptr, t, nx, ny, nz, tzv, ty, slab, diag, off, omega, s);
         case MV_CAST:
-            return launch_stack<MV_CAST, TX, TO>(x, b, y, y2, t, nx, ny, nz, tzv, ty, slab, diag, off, omega, s);
+            return launch_stack<MV_CAST, TX, TO>(x, b, y, y2, nullptr, t, nx, ny, nz, tzv, ty, slab, diag, off, omega, s);
         default:
             return cudaErrorInvalidValue;
     }
@@ -1426,11 +1544,14 @@ int64_t stencil3d_apply_partials(int64_t nx, int64_t ny, int64_t nz) {
 // (one value), both of the arithmetic type (f32, or f64 for f64 storage).
 // f64 goes with f64 only; mv_norm takes one type for x, b and y, f32 or
 // f64; jacobi_dot takes f64 alone (f32 and bf16 storage:
-// stencil3d_jacobi_dot).
+// stencil3d_jacobi_dot).  tzv, ty, slab: mv_dot's tile and slab, as
+// stencil3d_apply_stack's and made of whole boxes of BZ z points, BY rows
+// and SLAB planes (ops/stencil3d.py dot_geometry); the other kinds ignore
+// them.
 int stencil3d_apply(int kind, int x_dtype, int out_dtype, const void* x,
                     const void* b, void* y, void* partials, void* dot,
-                    int64_t nx, int64_t ny, int64_t nz, double diag,
-                    double off, double omega, void* stream) {
+                    int64_t nx, int64_t ny, int64_t nz, int tzv, int ty, int slab,
+                    double diag, double off, double omega, void* stream) {
     if (nx < 1 || ny < 1 || nz < 1) return cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (kind == JACOBI_DOT) {
@@ -1445,17 +1566,17 @@ int stencil3d_apply(int kind, int x_dtype, int out_dtype, const void* x,
             return launch_apply<MV_NORM, double, double>(x, b, y, partials, dot, nx, ny, nz, diag, off, omega, s);
         return cudaErrorInvalidValue;
     }
-    if (kind != MV_DOT) return cudaErrorInvalidValue;
+    if (kind != MV_DOT || !stack_fits(tzv, ty, slab)) return cudaErrorInvalidValue;
     if (x_dtype == F32 && out_dtype == F32)
-        return launch_apply<MV_DOT, float, float>(x, b, y, partials, dot, nx, ny, nz, diag, off, omega, s);
+        return launch_mv_dot<float, float>(x, y, partials, dot, nx, ny, nz, tzv, ty, slab, diag, off, s);
     if (x_dtype == F32 && out_dtype == BF16)
-        return launch_apply<MV_DOT, float, bf16>(x, b, y, partials, dot, nx, ny, nz, diag, off, omega, s);
+        return launch_mv_dot<float, bf16>(x, y, partials, dot, nx, ny, nz, tzv, ty, slab, diag, off, s);
     if (x_dtype == BF16 && out_dtype == F32)
-        return launch_apply<MV_DOT, bf16, float>(x, b, y, partials, dot, nx, ny, nz, diag, off, omega, s);
+        return launch_mv_dot<bf16, float>(x, y, partials, dot, nx, ny, nz, tzv, ty, slab, diag, off, s);
     if (x_dtype == BF16 && out_dtype == BF16)
-        return launch_apply<MV_DOT, bf16, bf16>(x, b, y, partials, dot, nx, ny, nz, diag, off, omega, s);
+        return launch_mv_dot<bf16, bf16>(x, y, partials, dot, nx, ny, nz, tzv, ty, slab, diag, off, s);
     if (x_dtype == F64 && out_dtype == F64)
-        return launch_apply<MV_DOT, double, double>(x, b, y, partials, dot, nx, ny, nz, diag, off, omega, s);
+        return launch_mv_dot<double, double>(x, y, partials, dot, nx, ny, nz, tzv, ty, slab, diag, off, s);
     return cudaErrorInvalidValue;
 }
 
@@ -1470,8 +1591,7 @@ int stencil3d_apply_stack(int kind, int x_dtype, int out_dtype, const void* x,
                           const void* b, void* y, void* y2, int64_t t, int64_t nx,
                           int64_t ny, int64_t nz, int tzv, int ty, int slab,
                           double diag, double off, double omega, void* stream) {
-    if (t < 1 || nx < 1 || ny < 1 || nz < 1 || tzv < 1 || tzv > 32 || (tzv & (tzv - 1)) ||
-        ty < 1 || ty > ST_ROWS || tzv * ty > ST_THREADS || slab < 1)
+    if (t < 1 || nx < 1 || ny < 1 || nz < 1 || !stack_fits(tzv, ty, slab))
         return cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (x_dtype == F32 && out_dtype == F32)

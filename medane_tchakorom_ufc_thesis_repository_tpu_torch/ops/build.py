@@ -55,8 +55,8 @@ SIGNATURES = {
         "kernel_error_string": ([_I], ctypes.c_char_p),
         "stencil3d_apply_partials": ([_I64, _I64, _I64], _I64),
         "stencil3d_apply": (
-            [_I, _I, _I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _D, _D, _D, _P],
-            _I),
+            [_I, _I, _I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _D,
+             _D, _D, _P], _I),
         "stencil3d_apply_stack": (
             [_I, _I, _I, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _I,
              _D, _D, _D, _P], _I),

@@ -209,8 +209,8 @@ def stencil3d_mv_norm(x: torch.Tensor, b: torch.Tensor, *, nx: int, ny: int,
     code = _NORM_CODE[x.dtype]
     rc = lib.stencil3d_apply(6, code, code, x.data_ptr(), b.data_ptr(),
                              y.data_ptr(), partials.data_ptr(),
-                             out.data_ptr(), nx, ny, nz, diag, off, 0.0,
-                             build.stream(x))
+                             out.data_ptr(), nx, ny, nz, 0, 0, 0, diag, off,
+                             0.0, build.stream(x))
     build.check(lib, rc, "stencil3d_mv_norm")
     build.count("stencil3d_mv_norm")
     return y, out

@@ -8,8 +8,9 @@ Five hand-written CUDA kernels (``csrc/stencil3d.cu``,
   kinds ``mv``, ``mv_dot``, ``residual``, ``jacobi`` and ``jacobi_dot``;
   the kinds without a dot take a stack ``(T, nx, ny, nz)`` of grids in
   one launch (the shards' tiles and the stacked strips), the dot kinds one
-  grid (on f32/bf16 storage ``jacobi_dot`` is a warp walk of its own, with
-  one partial sum a warp);
+  grid (``mv_dot`` walks the stack walk's tiles with the column walk's
+  summation order; on f32/bf16 storage ``jacobi_dot`` is a warp walk of
+  its own, with one partial sum a warp);
 * ``stencil3d_mv_cast`` (kernel A, kind ``mv_cast``): ``(A x, x)`` both
   written at a narrower type, the entry of a bf16 multigrid cycle; it
   takes a stack too;
@@ -36,7 +37,8 @@ Every kernel launch adds one to its entry in ``launch_counts()`` (the
 port's counts of all wrappers, kept in ``ops/build.py``); plain calls
 count nothing; a launch over a stack counts once.  The warp walks
 (kernels B and C, and the kind ``jacobi_dot``) take their launch geometry
-from ``walk_slab``, kernel A's kinds without a dot from ``stack_geometry``.
+from ``walk_slab``, kernel A's kinds without a dot from ``stack_geometry``,
+its kind ``mv_dot`` from ``dot_geometry``.
 """
 
 from __future__ import annotations
@@ -217,10 +219,12 @@ def stencil3d_apply(x: torch.Tensor, *extras: torch.Tensor, kind: str,
     partials = torch.empty(lib.stencil3d_apply_partials(nx, ny, nz), dtype=cdt,
                            device=x.device)
     dot = torch.empty((), dtype=cdt, device=x.device)
+    # mv_dot: the dot walk's tile and slab; f64 jacobi_dot ignores them
+    geometry = dot_geometry(x.shape, x.dtype) if kind == "mv_dot" else (0, 0, 0)
     rc = lib.stencil3d_apply(
         _KIND_CODE[kind], _DTYPE_CODE[x.dtype], _DTYPE_CODE[odt], x.data_ptr(),
         extras[0].data_ptr() if extras else None, y.data_ptr(),
-        partials.data_ptr(), dot.data_ptr(), nx, ny, nz, diag, off,
+        partials.data_ptr(), dot.data_ptr(), nx, ny, nz, *geometry, diag, off,
         0.0 if omega is None else omega, build.stream(x))
     build.check(lib, rc, f"stencil3d_apply[{kind}]")
     build.count(f"stencil3d_apply[{kind}]")
@@ -254,6 +258,35 @@ def stack_geometry(shape, dtype: torch.dtype) -> Tuple[int, int, int]:
     tiles = t * -(-ny // ty) * -(-nz // (tzv * v))
     slab = STACK_SLAB
     while slab > 2 and tiles * -(-nx // slab) < STACK_MIN_BLOCKS:
+        slab //= 2
+    return tzv, ty, slab
+
+
+# kernel A's kind mv_dot (csrc/stencil3d.cu stack_kernel, kind MV_DOT):
+# the stack walk on one grid, its dot summed in boxes of DOT_BOX_Z z points
+# by DOT_BOX_Y rows by DOT_BOX_X x planes in the order the column walk
+# summed it (a box is one of its blocks), so a tile is whole boxes and a
+# slab whole boxes; the slab is halved, down to one box, while the launch
+# has fewer than STACK_MIN_BLOCKS blocks
+DOT_BOX_X, DOT_BOX_Y, DOT_BOX_Z = 16, 8, 32
+
+
+def dot_geometry(shape, dtype: torch.dtype) -> Tuple[int, int, int]:
+    """``(tzv, ty, slab)`` of kernel A's dot walk on an ``(nx, ny, nz)``
+    grid of ``dtype``: tzv 16-byte vectors along z (a power of two, as many
+    as nz takes, at least a box's ``DOT_BOX_Z`` points and up to 32) by ty
+    rows (a power of two, as many as ny takes, at least ``DOT_BOX_Y``, up to
+    ``STACK_THREADS // tzv`` and ``STACK_ROWS``), and the x planes a block
+    walks (``STACK_SLAB``, halved down to ``DOT_BOX_X``).  The C launcher
+    refuses a tile or slab that is not whole boxes."""
+    nx, ny, nz = shape
+    v = 128 // torch.finfo(dtype).bits
+    tzv = min(32, max(DOT_BOX_Z // v, _pow2_at_least(-(-nz // v))))
+    ty = max(DOT_BOX_Y, min(STACK_THREADS // tzv, STACK_ROWS,
+                            _pow2_at_least(ny)))
+    tiles = -(-ny // ty) * -(-nz // (tzv * v))
+    slab = STACK_SLAB
+    while slab > DOT_BOX_X and tiles * -(-nx // slab) < STACK_MIN_BLOCKS:
         slab //= 2
     return tzv, ty, slab
 
