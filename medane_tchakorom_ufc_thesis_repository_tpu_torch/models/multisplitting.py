@@ -53,6 +53,7 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.lstsq import (
     lstsq_normal,
     lstsq_qr,
 )
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.utils.profiling import span
 
 
 # ---------------------------------------------------------------------------
@@ -480,14 +481,16 @@ def _certification_tail(op, b, x, inner_solve, tol_local, converged,
     ok = True
     if converged:
         reads += 1
-        ok = bool(ok_t)
+        with span("multisplit.sync"):
+            ok = bool(ok_t)
         while not ok and tail_sweeps < max_sweeps:
             res = inner_solve(b - op.coupling_mv(x), x)
             reads += res.syncs + 1
             x = res.x
             ok_t, lr_t, rn_t = true_resid(x)
             tail_sweeps += 1
-            ok = bool(ok_t)
+            with span("multisplit.sync"):
+                ok = bool(ok_t)
     return x, tail_sweeps, converged and ok, rn_t, lr_t, reads
 
 
@@ -560,109 +563,127 @@ def multisplit_solve(
 
     if x0 is None:
         x0 = torch.zeros((nb, bs), dtype=dtype, device=dev)
-    if rnorm0 is None:
-        # the reference's UIRNorm: the initial residual at entry
-        r0 = b - op.full_mv(x0)
-        rnorm0 = torch.sqrt(torch.sum(r0 * r0))
-    else:
-        rnorm0 = torch.as_tensor(rnorm0, dtype=dtype, device=dev)
-    tol_global = torch.clamp_min(rtol * rnorm0, atol)
-    # per-block threshold rtol/sqrt(nb) ||r0|| (the reference's
-    # rtol/sqrt(2), `...-local.c:267`, for nb blocks)
-    sqrt_nb = torch.sqrt(torch.tensor(float(nb), dtype=dtype, device=dev))
-    tol_local = torch.clamp_min(rtol / sqrt_nb * rnorm0, atol)
-
-    collect_publish = (basis_collection == "publish" and is_async
-                       and minimization is not None)
-    spc = s * max(stal) if collect_publish else s   # sweeps per cycle
-    syncs = 0
-
-    x, x_vis = x0, x0
-    rhs = b - op.coupling_mv(x_vis)
-    sweeps = cycles = 0
-    inner_total = torch.zeros((), dtype=torch.int64, device=dev)
-    conv_count = torch.zeros(nb, dtype=torch.int64, device=dev)
-    rnorm = rnorm0
-    local_rnorms = torch.full((nb,), float("inf"), dtype=dtype, device=dev)
-    outer_rnorm = torch.tensor(float("inf"), dtype=dtype, device=dev)
-    max_cycles = -(-maxiter // s) if record_history else 1
-    hist = torch.full((max_cycles,), float("inf"), dtype=dtype, device=dev)
-    syncs += 1
-    converged = bool(rnorm0 <= tol_global)
-    while not converged and sweeps < maxiter:
-        if minimization is not None:
-            S = (torch.zeros if collect_publish else torch.empty)(
-                (s, nb, bs), dtype=dtype, device=dev)
-        pub = [False] * nb
-        pub_counts = [0] * nb
-        for i in range(spc):
-            res = inner_solve(rhs, x)
-            syncs += res.syncs
-            x = res.x
-            inner_total = inner_total + res.iters.sum()
-            sweeps += 1
-            published = [sweeps % v == 0 for v in stal]
-            pub = [p or q for p, q in zip(pub, published)]
-            x_vis = _publish(stal, x, x_vis, sweeps)
-            rhs = b - op.coupling_mv(x_vis)
-            if minimization is None:
-                continue
-            if collect_publish:
-                # a column only when its block publishes, so every column
-                # holds fresh peer data; slots cycle, keeping the newest s
-                for blk in range(nb):
-                    if published[blk]:
-                        S[pub_counts[blk] % s, blk] = x[blk]
-                        pub_counts[blk] += 1
+    with span("multisplit.solve", b):
+        syncs = 0
+        with span("multisplit.Convergence"):
+            if rnorm0 is None:
+                # the reference's UIRNorm: the initial residual at entry
+                r0 = b - op.full_mv(x0)
+                rnorm0 = torch.sqrt(torch.sum(r0 * r0))
             else:
-                S[i] = x
-        if minimization is not None:
-            x, outer_rnorm, reads = _minimize(op, b, S, rhs, minimization,
-                                              outer, outer_pb)
-            x_vis = _publish(stal, x, x_vis, sweeps)
+                rnorm0 = torch.as_tensor(rnorm0, dtype=dtype, device=dev)
+            tol_global = torch.clamp_min(rtol * rnorm0, atol)
+            # per-block threshold rtol/sqrt(nb) ||r0|| (the reference's
+            # rtol/sqrt(2), `...-local.c:267`, for nb blocks)
+            sqrt_nb = torch.sqrt(torch.tensor(float(nb), dtype=dtype,
+                                              device=dev))
+            tol_local = torch.clamp_min(rtol / sqrt_nb * rnorm0, atol)
+            syncs += 1
+            with span("multisplit.sync"):
+                converged = bool(rnorm0 <= tol_global)
+
+        collect_publish = (basis_collection == "publish" and is_async
+                           and minimization is not None)
+        spc = s * max(stal) if collect_publish else s   # sweeps per cycle
+
+        x, x_vis = x0, x0
+        with span("multisplit.Exchange"):
             rhs = b - op.coupling_mv(x_vis)
-            syncs += reads
+        sweeps = cycles = 0
+        inner_total = torch.zeros((), dtype=torch.int64, device=dev)
+        conv_count = torch.zeros(nb, dtype=torch.int64, device=dev)
+        rnorm = rnorm0
+        local_rnorms = torch.full((nb,), float("inf"), dtype=dtype,
+                                  device=dev)
+        outer_rnorm = torch.tensor(float("inf"), dtype=dtype, device=dev)
+        max_cycles = -(-maxiter // s) if record_history else 1
+        hist = torch.full((max_cycles,), float("inf"), dtype=dtype,
+                          device=dev)
+        while not converged and sweeps < maxiter:
+            for i in range(spc):
+                with span("multisplit.I_Solver", b):
+                    if i == 0:
+                        # the cycle's basis, and which blocks published
+                        if minimization is not None:
+                            S = (torch.zeros if collect_publish
+                                 else torch.empty)((s, nb, bs), dtype=dtype,
+                                                   device=dev)
+                        pub = [False] * nb
+                        pub_counts = [0] * nb
+                    res = inner_solve(rhs, x)
+                    syncs += res.syncs
+                    x = res.x
+                    inner_total = inner_total + res.iters.sum()
+                    sweeps += 1
+                    published = [sweeps % v == 0 for v in stal]
+                    pub = [p or q for p, q in zip(pub, published)]
+                    if collect_publish:
+                        # a column only when its block publishes, so every
+                        # column holds fresh peer data; slots cycle, keeping
+                        # the newest s
+                        for blk in range(nb):
+                            if published[blk]:
+                                S[pub_counts[blk] % s, blk] = x[blk]
+                                pub_counts[blk] += 1
+                    elif minimization is not None:
+                        S[i] = x
+                with span("multisplit.Exchange"):
+                    x_vis = _publish(stal, x, x_vis, sweeps)
+                    rhs = b - op.coupling_mv(x_vis)
+            if minimization is not None:
+                with span("multisplit.O_Solver", b):
+                    x, outer_rnorm, reads = _minimize(
+                        op, b, S, rhs, minimization, outer, outer_pb)
+                    syncs += reads
+                with span("multisplit.Exchange"):
+                    x_vis = _publish(stal, x, x_vis, sweeps)
+                    rhs = b - op.coupling_mv(x_vis)
 
-        # local residual rows r_i = rhs - A_ii x_i: with a sync exchange
-        # the true global residual rows (the reference's MatResidual test)
-        local_rnorms, rnorm = _local_rnorms(op, rhs, x)
-        if record_history:
-            hist[cycles] = rnorm
-        cycles += 1
+            with span("multisplit.Convergence"):
+                # local residual rows r_i = rhs - A_ii x_i: with a sync
+                # exchange the true global residual rows (the reference's
+                # MatResidual test)
+                local_rnorms, rnorm = _local_rnorms(op, rhs, x)
+                if record_history:
+                    hist[cycles] = rnorm
+                cycles += 1
 
+                if is_async:
+                    # pseudo-period gate (Alg-5.15): an under-threshold
+                    # cycle counts toward termination only when every
+                    # block published fresh data during it
+                    under = local_rnorms <= tol_local
+                    kept = conv_count + 1 if all(pub) else conv_count
+                    conv_count = torch.where(under, kept, 0)
+                    done = torch.all(conv_count >= min_convergence_count)
+                elif minimization == "global":
+                    done = outer_rnorm <= tol_global
+                elif minimization is not None:
+                    done = torch.all(local_rnorms <= tol_local)
+                else:
+                    done = rnorm <= tol_global
+                syncs += 1
+                with span("multisplit.sync"):
+                    converged = bool(done)
+
+        certified = tail_sweeps = None
         if is_async:
-            # pseudo-period gate (Alg-5.15): an under-threshold cycle
-            # counts toward termination only when every block published
-            # fresh data during it
-            under = local_rnorms <= tol_local
-            kept = conv_count + 1 if all(pub) else conv_count
-            conv_count = torch.where(under, kept, 0)
-            done = torch.all(conv_count >= min_convergence_count)
-        elif minimization == "global":
-            done = outer_rnorm <= tol_global
-        elif minimization is not None:
-            done = torch.all(local_rnorms <= tol_local)
-        else:
-            done = rnorm <= tol_global
-        syncs += 1
-        converged = bool(done)
+            with span("multisplit.Convergence"):
+                x, tail_sweeps, certified, rn_t, lr_t, reads = \
+                    _certification_tail(op, b, x, inner_solve, tol_local,
+                                        converged)
+            syncs += reads
+            if converged:
+                rnorm, local_rnorms = rn_t, lr_t
+            sweeps += tail_sweeps
+            converged = certified
 
-    certified = tail_sweeps = None
-    if is_async:
-        x, tail_sweeps, certified, rn_t, lr_t, reads = _certification_tail(
-            op, b, x, inner_solve, tol_local, converged)
-        syncs += reads
-        if converged:
-            rnorm, local_rnorms = rn_t, lr_t
-        sweeps += tail_sweeps
-        converged = certified
-
-    return MultisplitResult(
-        x=x, sweeps=sweeps, cycles=cycles, inner_iters=inner_total,
-        rnorm=rnorm, rnorm0=rnorm0, local_rnorms=local_rnorms,
-        outer_rnorm=outer_rnorm, converged=converged,
-        history=hist if record_history else None, certified=certified,
-        tail_sweeps=tail_sweeps, syncs=syncs)
+        return MultisplitResult(
+            x=x, sweeps=sweeps, cycles=cycles, inner_iters=inner_total,
+            rnorm=rnorm, rnorm0=rnorm0, local_rnorms=local_rnorms,
+            outer_rnorm=outer_rnorm, converged=converged,
+            history=hist if record_history else None, certified=certified,
+            tail_sweeps=tail_sweeps, syncs=syncs)
 
 
 # ---------------------------------------------------------------------------

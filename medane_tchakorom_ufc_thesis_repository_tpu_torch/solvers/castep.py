@@ -26,6 +26,7 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.krylov import (
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.lstsq import (
     full_matmul,
 )
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.utils.profiling import span
 
 
 def chebyshev_shifts(lmin: float, lmax: float, s: int) -> list:
@@ -211,7 +212,9 @@ def ca_gmres(
     else:
         while True:
             syncs += 1
-            if not bool((~state[3] & (state[1] < maxiter)).any()):
+            with span("krylov.sync"):
+                live = bool((~state[3] & (state[1] < maxiter)).any())
+            if not live:
                 break
             state = body(*state)
     x, iters, rnorm, converged = state

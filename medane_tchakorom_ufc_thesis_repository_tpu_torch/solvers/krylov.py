@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops.fused import maxpy, mdot
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,7 +179,9 @@ def cg(
     while trips < maxiter:
         live = pcg_live(s.rs, tol, rn0, divtol)
         syncs += 1
-        if not bool(live.any() if batched else live):
+        with span("krylov.sync"):
+            going = bool(live.any() if batched else live)
+        if not going:
             break
         pcg_iteration(s, trips == 0, live, matvec=matvec, precond=precond,
                       precond_dot=precond_dot, matvec_dot=matvec_dot,
@@ -307,7 +310,9 @@ def bicgstab(
         if divtol > 0.0:
             live = live & (torch.sqrt(rs) <= divtol * rn0)
         syncs += 1
-        if not bool(live.any()):
+        with span("krylov.sync"):
+            going = bool(live.any())
+        if not going:
             break
         rho_new = dot(rhat, r)
         ok_rho = rho_new.abs() > 0
@@ -396,7 +401,9 @@ def minres(
         if divtol > 0.0:
             live = live & (phibar <= divtol * rn0)
         syncs += 1
-        if not bool(live.any()):
+        with span("krylov.sync"):
+            going = bool(live.any())
+        if not going:
             break
         # Lanczos step in the M inner product
         ok_b = beta > 0
@@ -635,7 +642,9 @@ def gmres(
         live = ~(converged | diverged) & (iters < maxiter)
         if c > 0:
             syncs += 1
-            if not bool(live.any()):
+            with span("krylov.sync"):
+                going = bool(live.any())
+            if not going:
                 break
         state = tuple(torch.where(live.view(-1, *[1] * (old.dim() - 1)),
                                   new, old)

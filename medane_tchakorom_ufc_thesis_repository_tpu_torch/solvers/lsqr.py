@@ -17,6 +17,7 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.krylov import (
     cg,
     make_reducer,
 )
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.utils.profiling import span
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:
@@ -93,7 +94,9 @@ def lsqr(
     iters = syncs = 0
     while iters < maxiter:
         syncs += 1
-        if not going((rnorm > tol) & (arnorm > artol)):
+        with span("krylov.sync"):
+            live = going((rnorm > tol) & (arnorm > artol))
+        if not live:
             break
         u = matvec(v) - col(alpha) * u
         beta = unorm(u)

@@ -45,6 +45,7 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.krylov import (
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.multigrid import (
     mg_preconditioner,
 )
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.utils.profiling import span
 
 _DIVTOL = 1e5     # cg's default divergence bound, which the north-star keeps
 
@@ -249,30 +250,34 @@ class _FusedProgram:
 
     def _run(self, name: str, step) -> None:
         """``step()``: eagerly on the CPU; on the card a replay of its
-        graph, captured after the first call."""
+        graph, captured after the first call (spans ``refine.replay`` and
+        ``refine.capture``)."""
         if self.st.bhi.device.type != "cuda":
-            step()
+            with span("refine.replay"):
+                step()
             return
         g = self.graphs.get(name)
         if g is not None:
-            g.replay()
+            with span("refine.replay", self.st.bhi):
+                g.replay()
             return
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            step()                      # warm-up: this call's own work
-        torch.cuda.current_stream().wait_stream(side)
-        t0 = time.perf_counter()
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
-        graph, pool = torch.cuda.CUDAGraph(), self.pool
-        # the context refers to no ``self``: no cycle keeps a cleared
-        # program's buffers alive until the garbage collector runs
-        g = build.CountedGraph(graph,
-                               lambda: torch.cuda.graph(graph, pool=pool))
-        g.capture(step)
-        self.graphs[name] = g
-        self.capture_s += time.perf_counter() - t0
+        with span("refine.capture"):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                step()                      # warm-up: this call's own work
+            torch.cuda.current_stream().wait_stream(side)
+            t0 = time.perf_counter()
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            graph, pool = torch.cuda.CUDAGraph(), self.pool
+            # the context refers to no ``self``: no cycle keeps a cleared
+            # program's buffers alive until the garbage collector runs
+            g = build.CountedGraph(graph,
+                                   lambda: torch.cuda.graph(graph, pool=pool))
+            g.capture(step)
+            self.graphs[name] = g
+            self.capture_s += time.perf_counter() - t0
 
     def __call__(self, bhi: torch.Tensor, blo: torch.Tensor):
         """Solve for ``b = bhi + blo``; returns ``(xhi, xlo, passes,
@@ -290,22 +295,29 @@ class _FusedProgram:
         self._cg_start(st.bhi)
         passes = syncs = 0
         pcg_iters: List[int] = []
-        while passes < self.max_passes:
-            syncs += 1
-            if not bool(st.go):
-                break
-            trips = 0
-            while trips < self.pcg_maxiter:
+        with span("refine.passes", st.bhi):
+            while passes < self.max_passes:
                 syncs += 1
-                if not bool(st.live):
+                with span("refine.sync"):
+                    go = bool(st.go)
+                if not go:
                     break
-                self._run("iteration", self._iteration)
-                trips += 1
-            pcg_iters.append(trips)
-            self._run("tail", self._tail)
-            passes += 1
-        stats = torch.stack([st.rnorm, st.rnorm0]).cpu()   # one read for both
+                trips = 0
+                while trips < self.pcg_maxiter:
+                    syncs += 1
+                    with span("refine.sync"):
+                        live = bool(st.live)
+                    if not live:
+                        break
+                    self._run("iteration", self._iteration)
+                    trips += 1
+                pcg_iters.append(trips)
+                self._run("tail", self._tail)
+                passes += 1
         syncs += 1
+        with span("refine.sync"):
+            # one read for both
+            stats = torch.stack([st.rnorm, st.rnorm0]).cpu()
         return (st.xhi.clone(), st.xlo.clone(), passes, pcg_iters,
                 float(stats[0]), float(stats[1]), syncs)
 
@@ -337,7 +349,8 @@ def df_northstar_fused(
         bhi = op.mv(torch.ones(op.dims, dtype=torch.float32,
                                device=resolve(device)))
         b_df = (bhi, torch.zeros_like(bhi))
-    xhi, xlo, passes, pcg_iters, rn, rn0, syncs = run(*b_df)
+    with span("refine.solve", b_df[0]):
+        xhi, xlo, passes, pcg_iters, rn, rn0, syncs = run(*b_df)
     return RefineResult((xhi, xlo), passes, [], rn, rn0, rn <= rtol * rn0,
                         pcg_iters=pcg_iters, syncs=syncs)
 
