@@ -66,6 +66,12 @@ class InnerConfig:
     ``inner1_``/``inner2_`` KSP (gmres, maxit 20, rtol 1e-3, pc none;
     ``config/default_run_variables:36-44``).
 
+    ``restart``: Krylov steps between restarts; ``maxiter``: the inner
+    solve's iterations in all, restarts included (maxit 20 < restart 30:
+    one cycle a sweep); ``rtol``/``atol``: stop when the residual estimate
+    is at most ``max(rtol * ||rhs_i - A_ii x_i||, atol)``, the block's
+    residual at the sweep's start (``solvers/krylov.py`` states each
+    method's estimate).
     ``method``: 'gmres', 'cg', 'bicgstab', 'chebyshev' or 'ca_gmres'
     (s-step GMRES with ``s = restart``, one Gram matrix per cycle).
     ``pc``: 'none', 'jacobi' (left diagonal scaling by each block's own
@@ -668,7 +674,8 @@ def multisplit_solve(
 
         certified = tail_sweeps = None
         if is_async:
-            with span("multisplit.Convergence"):
+            with span("multisplit.Convergence"), \
+                    span("multisplit.Certify", b):
                 x, tail_sweeps, certified, rn_t, lr_t, reads = \
                     _certification_tail(op, b, x, inner_solve, tol_local,
                                         converged)
