@@ -26,12 +26,15 @@ schedules, basis slots) is taken there with no device read, and the
 device is read once before the first outer cycle, once per outer cycle
 (the convergence flag), once per certification round, and inside the
 inner and outer solves as they document (``MultisplitResult.syncs``
-counts them all).
+counts them all).  On the card an inner solve that reads nothing (GMRES
+of one restart cycle, ``_graphed``) runs as one replay of a CUDA graph
+a sweep (``_InnerGraph``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Union
 
 import torch
@@ -39,6 +42,7 @@ import torch
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.blockops import (
     BlockOperator,
 )
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import build
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops.fused import maxpy
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers import krylov
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.bjacobi import (
@@ -303,6 +307,7 @@ def _make_single_inner(op: BlockOperator, cfg: InnerConfig,
     bj_M = (None if binv is None
             else BlockJacobi(inv_blocks=binv, n=op.block_size).apply)
     dvec = None
+    dinvs = {}      # 1 / dvec by (dtype, device): no host copy after the first
     if cfg.pc == "jacobi":
         # each block's own diagonal (constant on the stencil strips)
         args = op.diag_mv_args
@@ -323,7 +328,10 @@ def _make_single_inner(op: BlockOperator, cfg: InnerConfig,
         if cfg.pc == "jacobi":
             # left diagonal preconditioning: (D^-1 A) x = D^-1 b, tested in
             # the preconditioned norm (PETSc's default)
-            dinv = 1.0 / dvec.to(rhs)
+            key = (rhs.dtype, rhs.device)
+            if key not in dinvs:
+                dinvs[key] = 1.0 / dvec.to(rhs)
+            dinv = dinvs[key]
             mv = lambda v: dinv * block_mv(v)   # noqa: E731
             rhs = dinv * rhs
         elif precond is not None and cfg.method == "gmres":
@@ -385,6 +393,123 @@ def _stacked_cycle(diag_op):
 
 
 # ---------------------------------------------------------------------------
+# The inner solve as a CUDA graph
+# ---------------------------------------------------------------------------
+
+def _graphed(cfg: InnerConfig, device) -> bool:
+    """Whether the inner solve of ``cfg`` on ``device`` replays a CUDA
+    graph (``_InnerGraph``): on the card, a GMRES of one restart cycle
+    (``ceil(maxiter / min(restart, maxiter)) == 1``), preconditioned by
+    nothing or by Jacobi.  Such a solve reads nothing on the host (its
+    ``syncs`` is 0), so its launches are the same at every call.  CG,
+    BiCGStab and Chebyshev read the device every iteration, CA-GMRES and
+    a GMRES of several cycles between them, and 'mg' and 'bjacobi' are
+    not held to the graph's terms (static buffers, no host read): all of
+    them, per-block configs and the CPU run eagerly."""
+    m = max(1, min(cfg.restart, cfg.maxiter))
+    return (torch.device(device).type == "cuda" and cfg.method == "gmres"
+            and -(-cfg.maxiter // m) == 1 and cfg.pc in ("none", "jacobi"))
+
+
+def _new_graph(step):
+    """``(graph, context)``: a new CUDA graph and the function returning
+    the context that captures into it (``ops/build.CountedGraph``'s
+    arguments).  ``step`` is what the capture will hold.
+
+    The capture's stream takes a cuBLAS workspace of its own (32 MiB on
+    the H100, for the triangular solve), allocated in the capture.  The
+    workspaces held for other streams are freed first, so that the
+    capture holds no more memory than an eager solve, whose workspace is
+    its stream's; a stream whose workspace went takes a new one at its
+    next cuBLAS call."""
+    graph = torch.cuda.CUDAGraph()
+
+    def context():
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
+        return torch.cuda.graph(graph)
+
+    return graph, context
+
+
+class _InnerGraph:
+    """``(rhs, x) -> KrylovResult``: the batched inner solve ``solve`` of
+    one config, on the card one replay of a CUDA graph a call.
+
+    The graph reads its own buffers ``rhs`` and ``x``: a caller that
+    writes the right-hand side into ``rhs`` and passes ``x`` back copies
+    nothing; other tensors are copied in.  A call solves into ``x`` in
+    place and returns it with the graph's counts and norms, all of which
+    the next call overwrites, so a caller keeps a copy of what it needs
+    longer (``_publish``).
+
+    The first call runs the solve eagerly, as the warm-up, and does its
+    own work (on the caller's stream: a side stream would hold a cuBLAS
+    workspace of its own at the solve's peak); the second captures it
+    (``ops/build.CountedGraph``: every replay counts its kernels'
+    launches) and replays it, as does every call after.  The captured
+    step writes none of its inputs, so running it again gives the same
+    result (a stand-in graph that re-runs it does)."""
+
+    def __init__(self, solve, shape, dtype, device):
+        self.solve = solve
+        self.rhs = torch.zeros(shape, dtype=dtype, device=device)
+        self.x = torch.zeros(shape, dtype=dtype, device=device)
+        self.graph = None
+        self.out = None          # the last result; once captured, the graph's
+        self.warm = False
+
+    def _step(self) -> None:
+        self.out = self.solve(self.rhs, self.x)
+
+    def __call__(self, rhs, x) -> krylov.KrylovResult:
+        if rhs is not self.rhs:
+            self.rhs.copy_(rhs)
+        if x is not self.x:
+            self.x.copy_(x)
+        if self.graph is None and self.warm:
+            with span("multisplit.capture"):
+                self.out = None          # the warm-up's x: not held over it
+                g = build.CountedGraph(*_new_graph(self._step))
+                g.capture(self._step)
+                self.graph = g
+        if self.graph is None:
+            self._step()                 # the warm-up
+            self.warm = True
+        else:
+            with span("multisplit.replay", self.x):
+                self.graph.replay()
+        out = self.out
+        self.x.copy_(out.x)
+        return dataclasses.replace(out, x=self.x)
+
+
+@functools.lru_cache(maxsize=4)
+def _inner_graph(op, cfg: InnerConfig, shape, dtype, device) -> _InnerGraph:
+    """The graphed inner solve of ``cfg`` on ``op`` for right-hand sides of
+    ``shape``, ``dtype`` and ``device``, cached across solves (a solve
+    rebuilds its inner solve, and a capture is worth many sweeps).  Few
+    are kept, since each holds its buffers and a graph memory pool;
+    ``_inner_graph.cache_clear()`` frees them."""
+    return _InnerGraph(_make_single_inner(op, cfg), shape, dtype, device)
+
+
+def _inner_solve(op, cfg, like: torch.Tensor):
+    """``(inner_solve, x_buf, rhs_buf)`` for right-hand sides like
+    ``like``: the cached ``_InnerGraph`` and the buffers it reads x and the
+    right-hand side from, which a driver writes in place; or, where the
+    inner solve runs eagerly (``_graphed``), ``_make_inner``'s solve and
+    no buffers."""
+    uniform, per_block = _per_block(cfg, op.nblocks, "InnerConfig")
+    if per_block is not None or not _graphed(uniform, like.device):
+        return _make_inner(op, cfg), None, None
+    run = _inner_graph(op, uniform, tuple(like.shape), like.dtype,
+                       like.device)
+    return run, run.x, run.rhs
+
+
+# ---------------------------------------------------------------------------
 # Tall-skinny least squares
 # ---------------------------------------------------------------------------
 
@@ -412,12 +537,16 @@ def _solve_ls(R: torch.Tensor, rhs: torch.Tensor, cfg: OuterConfig):
     return res.x, res.syncs
 
 
-def _publish(stal, x, x_vis, sweep_count):
+def _publish(stal, x, x_vis, sweep_count, overwritten: bool = False):
     """Each block's visible iterate after sweep ``sweep_count``: its new
     one on its publish sweeps (every ``stal[i]``-th), else the one it
-    published last."""
+    published last.  ``overwritten``: the next sweep solves into ``x`` in
+    place (``_InnerGraph``), so an ``x`` that every block publishes is
+    kept as a copy unless every block publishes again after that sweep."""
     done = [sweep_count % v == 0 for v in stal]
     if all(done):
+        if overwritten and not all((sweep_count + 1) % v == 0 for v in stal):
+            return x.clone()
         return x
     if not any(done):
         return x_vis
@@ -469,11 +598,12 @@ def _local_rnorms(op, rhs, x):
 
 
 def _certification_tail(op, b, x, inner_solve, tol_local, converged,
-                        max_sweeps: int = 64):
+                        max_sweeps: int = 64, rhs_out=None):
     """Lockstep certification of an async run: its cycles measure
     residuals against the staleness view; sync sweeps on the true
     coupling until every block's true residual is under ``tol_local``
-    (at most ``max_sweeps``).  Only a protocol-converged run is
+    (at most ``max_sweeps``), each sweep's right-hand side written into
+    ``rhs_out`` when given.  Only a protocol-converged run is
     certified.  Returns ``(x, tail sweeps, certified, rnorm,
     local_rnorms, host reads)``."""
     def true_resid(x_c):
@@ -490,7 +620,8 @@ def _certification_tail(op, b, x, inner_solve, tol_local, converged,
         with span("multisplit.sync"):
             ok = bool(ok_t)
         while not ok and tail_sweeps < max_sweeps:
-            res = inner_solve(b - op.coupling_mv(x), x)
+            res = inner_solve(torch.sub(b, op.coupling_mv(x), out=rhs_out),
+                              x)
             reads += res.syncs + 1
             x = res.x
             ok_t, lr_t, rn_t = true_resid(x)
@@ -555,7 +686,7 @@ def multisplit_solve(
     if not is_async and any(v != 1 for v in stal):
         raise ValueError("sync schedule requires staleness == 1")
 
-    inner_solve = _make_inner(op, inner)
+    inner_solve, x_buf, rhs_buf = _inner_solve(op, inner, b)
     outer_u, outer_pb = _per_block(outer, nb, "OuterConfig")
     if outer_pb is not None:
         if minimization == "global":
@@ -593,8 +724,12 @@ def multisplit_solve(
         spc = s * max(stal) if collect_publish else s   # sweeps per cycle
 
         x, x_vis = x0, x0
+        if x_buf is not None:
+            # a graphed inner solve reads x and the exchange's rhs from its
+            # own buffers: the loop writes them in place
+            x = x_buf.copy_(x0)
         with span("multisplit.Exchange"):
-            rhs = b - op.coupling_mv(x_vis)
+            rhs = torch.sub(b, op.coupling_mv(x_vis), out=rhs_buf)
         sweeps = cycles = 0
         inner_total = torch.zeros((), dtype=torch.int64, device=dev)
         conv_count = torch.zeros(nb, dtype=torch.int64, device=dev)
@@ -634,8 +769,9 @@ def multisplit_solve(
                     elif minimization is not None:
                         S[i] = x
                 with span("multisplit.Exchange"):
-                    x_vis = _publish(stal, x, x_vis, sweeps)
-                    rhs = b - op.coupling_mv(x_vis)
+                    x_vis = _publish(stal, x, x_vis, sweeps,
+                                     overwritten=x is x_buf)
+                    rhs = torch.sub(b, op.coupling_mv(x_vis), out=rhs_buf)
             if minimization is not None:
                 with span("multisplit.O_Solver", b):
                     x, outer_rnorm, reads = _minimize(
@@ -643,7 +779,7 @@ def multisplit_solve(
                     syncs += reads
                 with span("multisplit.Exchange"):
                     x_vis = _publish(stal, x, x_vis, sweeps)
-                    rhs = b - op.coupling_mv(x_vis)
+                    rhs = torch.sub(b, op.coupling_mv(x_vis), out=rhs_buf)
 
             with span("multisplit.Convergence"):
                 # local residual rows r_i = rhs - A_ii x_i: with a sync
@@ -678,7 +814,7 @@ def multisplit_solve(
                     span("multisplit.Certify", b):
                 x, tail_sweeps, certified, rn_t, lr_t, reads = \
                     _certification_tail(op, b, x, inner_solve, tol_local,
-                                        converged)
+                                        converged, rhs_out=rhs_buf)
             syncs += reads
             if converged:
                 rnorm, local_rnorms = rn_t, lr_t
@@ -686,7 +822,8 @@ def multisplit_solve(
             converged = certified
 
         return MultisplitResult(
-            x=x, sweeps=sweeps, cycles=cycles, inner_iters=inner_total,
+            x=x.clone() if x is x_buf else x, sweeps=sweeps, cycles=cycles,
+            inner_iters=inner_total,
             rnorm=rnorm, rnorm0=rnorm0, local_rnorms=local_rnorms,
             outer_rnorm=outer_rnorm, converged=converged,
             history=hist if record_history else None, certified=certified,

@@ -34,7 +34,7 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.multisplitting impo
     OuterConfig,
     _certification_tail,
     _local_rnorms,
-    _make_inner,
+    _inner_solve,
     _minimize,
     _per_block,
     _publish,
@@ -88,12 +88,14 @@ def staged_multisplit_solve(
     if outer_pb is not None and minimization == "global":
         raise ValueError("per-block OuterConfig needs a blockwise scope")
     outer_eff = outer_u if outer_pb is None else outer_pb[0]
-    inner_solve = _make_inner(op, inner)
+    inner_solve, x_buf, rhs_buf = _inner_solve(op, inner, b)
 
     x = torch.zeros((nb, bs), dtype=dtype, device=dev)
     x_vis = x
+    if x_buf is not None:
+        x = x_buf.zero_()
     with pt.phase("Exchange", fence_on=x):
-        rhs = b - op.coupling_mv(x_vis)
+        rhs = torch.sub(b, op.coupling_mv(x_vis), out=rhs_buf)
     r0 = b - op.full_mv(x)
     rnorm0 = torch.sqrt(torch.sum(r0 * r0))
     tol_global = torch.clamp_min(rtol * rnorm0, atol)
@@ -123,8 +125,9 @@ def staged_multisplit_solve(
             sweeps += 1
             pub = [p or sweeps % v == 0 for p, v in zip(pub, stal)]
             with pt.phase("Exchange"):
-                x_vis = _publish(stal, x, x_vis, sweeps)
-                rhs = b - op.coupling_mv(x_vis)
+                x_vis = _publish(stal, x, x_vis, sweeps,
+                                 overwritten=x is x_buf)
+                rhs = torch.sub(b, op.coupling_mv(x_vis), out=rhs_buf)
                 fence(rhs)
             if minimization is not None:
                 S[i] = x
@@ -136,7 +139,7 @@ def staged_multisplit_solve(
             syncs += reads
             with pt.phase("Exchange"):
                 x_vis = _publish(stal, x, x_vis, sweeps)
-                rhs = b - op.coupling_mv(x_vis)
+                rhs = torch.sub(b, op.coupling_mv(x_vis), out=rhs_buf)
                 fence(rhs)
 
         with pt.phase("Convergence"):
@@ -162,7 +165,7 @@ def staged_multisplit_solve(
         with pt.phase("Convergence"):
             x, tail_sweeps, certified, rn_t, lr_t, reads = (
                 _certification_tail(op, b, x, inner_solve, tol_local,
-                                    converged))
+                                    converged, rhs_out=rhs_buf))
             fence(x)
         syncs += reads
         if converged:
@@ -171,7 +174,8 @@ def staged_multisplit_solve(
         converged = certified
 
     return MultisplitResult(
-        x=x, sweeps=sweeps, cycles=cycles, inner_iters=inner_total,
+        x=x.clone() if x is x_buf else x, sweeps=sweeps, cycles=cycles,
+        inner_iters=inner_total,
         rnorm=rnorm, rnorm0=rnorm0, local_rnorms=local_rnorms,
         outer_rnorm=outer_rnorm, converged=converged,
         history=torch.stack(history) if history else None,
