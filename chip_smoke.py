@@ -1707,7 +1707,7 @@ def slice_phase(torch, port, k, dev) -> dict:
         counts = k.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         peak_reserved = torch.cuda.max_memory_reserved()
-        capture_s = program_of(op).capture_s
+        capture_s = program_of(op).steps.capture_s
         missing = [m for m in names if counts.get(m, 0) == 0]
         if missing:
             raise AssertionError(f"{n}^3: kernels never launched: {missing}")
@@ -1992,8 +1992,8 @@ def northstar2d_phase(torch, port, dev) -> dict:
             solve()
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        capture = (f", of it {program_of(op).capture_s * 1e3:.1f} ms capturing "
-                   f"the two graphs" if how == "program" else "")
+        capture = (f", of it {program_of(op).steps.capture_s * 1e3:.1f} ms "
+                   f"capturing the two graphs" if how == "program" else "")
         log(f"{label}: passes {res.passes}, PCG iterations {res.pcg_iters}, "
             f"host syncs {res.syncs}, df rel {res.rnorm / res.rnorm0:.3e}, "
             f"f64 rel {rel:.3e}, max|x-1| {err:.3e}")
@@ -3185,7 +3185,7 @@ def replay_share(torch, label: str, program, res, solve_ms: float) -> None:
     few launches) is left out.  Replays after the solve overwrite the
     program's state, which the next solve sets anew."""
     per = {}
-    for name, g in program.graphs.items():
+    for name, g in program.steps.graphs.items():
         ms = []
         for _ in range(5):
             a = torch.cuda.Event(enable_timing=True)

@@ -407,82 +407,43 @@ def _graphed(cfg: InnerConfig, device) -> bool:
     not held to the graph's terms (static buffers, no host read): all of
     them, per-block configs and the CPU run eagerly."""
     m = max(1, min(cfg.restart, cfg.maxiter))
-    return (torch.device(device).type == "cuda" and cfg.method == "gmres"
+    return (build._graphs_on(device) and cfg.method == "gmres"
             and -(-cfg.maxiter // m) == 1 and cfg.pc in ("none", "jacobi"))
-
-
-def _new_graph(step):
-    """``(graph, context)``: a new CUDA graph and the function returning
-    the context that captures into it (``ops/build.CountedGraph``'s
-    arguments).  ``step`` is what the capture will hold.
-
-    The capture's stream takes a cuBLAS workspace of its own (32 MiB on
-    the H100, for the triangular solve), allocated in the capture.  The
-    workspaces held for other streams are freed first, so that the
-    capture holds no more memory than an eager solve, whose workspace is
-    its stream's; a stream whose workspace went takes a new one at its
-    next cuBLAS call."""
-    graph = torch.cuda.CUDAGraph()
-
-    def context():
-        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
-        if clear is not None:
-            clear()
-        return torch.cuda.graph(graph)
-
-    return graph, context
 
 
 class _InnerGraph:
     """``(rhs, x) -> KrylovResult``: the batched inner solve ``solve`` of
-    one config, on the card one replay of a CUDA graph a call.
+    one config, on the card one replay of a CUDA graph a call
+    (``build.GraphRunner``: spans ``multisplit.replay`` and
+    ``multisplit.capture``).
 
     The graph reads its own buffers ``rhs`` and ``x``: a caller that
     writes the right-hand side into ``rhs`` and passes ``x`` back copies
     nothing; other tensors are copied in.  A call solves into ``x`` in
     place and returns it with the graph's counts and norms, all of which
     the next call overwrites, so a caller keeps a copy of what it needs
-    longer (``_publish``).
-
-    The first call runs the solve eagerly, as the warm-up, and does its
-    own work (on the caller's stream: a side stream would hold a cuBLAS
-    workspace of its own at the solve's peak); the second captures it
-    (``ops/build.CountedGraph``: every replay counts its kernels'
-    launches) and replays it, as does every call after.  The captured
-    step writes none of its inputs, so running it again gives the same
-    result (a stand-in graph that re-runs it does)."""
+    longer (``_publish``).  The warm-up's solution is copied into ``x``
+    and not held over the capture."""
 
     def __init__(self, solve, shape, dtype, device):
         self.solve = solve
         self.rhs = torch.zeros(shape, dtype=dtype, device=device)
         self.x = torch.zeros(shape, dtype=dtype, device=device)
-        self.graph = None
         self.out = None          # the last result; once captured, the graph's
-        self.warm = False
+        self.steps = build.GraphRunner("multisplit", self.x)
 
     def _step(self) -> None:
-        self.out = self.solve(self.rhs, self.x)
+        out = self.solve(self.rhs, self.x)
+        self.x.copy_(out.x)
+        self.out = dataclasses.replace(out, x=self.x)
 
     def __call__(self, rhs, x) -> krylov.KrylovResult:
         if rhs is not self.rhs:
             self.rhs.copy_(rhs)
         if x is not self.x:
             self.x.copy_(x)
-        if self.graph is None and self.warm:
-            with span("multisplit.capture"):
-                self.out = None          # the warm-up's x: not held over it
-                g = build.CountedGraph(*_new_graph(self._step))
-                g.capture(self._step)
-                self.graph = g
-        if self.graph is None:
-            self._step()                 # the warm-up
-            self.warm = True
-        else:
-            with span("multisplit.replay", self.x):
-                self.graph.replay()
-        out = self.out
-        self.x.copy_(out.x)
-        return dataclasses.replace(out, x=self.x)
+        self.steps("solve", self._step)
+        return self.out
 
 
 @functools.lru_cache(maxsize=4)
@@ -666,6 +627,27 @@ def multisplit_solve(
     basis column every sweep; 'publish' only when a block publishes, one
     cycle then spanning ``s * max(staleness)`` sweeps.
     """
+    return _multisplit(
+        op, b, x0, schedule=schedule, staleness=staleness,
+        minimization=minimization, s=s, inner=inner, outer=outer, rtol=rtol,
+        atol=atol, maxiter=maxiter,
+        min_convergence_count=min_convergence_count,
+        record_history=record_history, rnorm0=rnorm0,
+        basis_collection=basis_collection,
+        stage=lambda name, on: span("multisplit." + name, on))
+
+
+def _multisplit(op, b, x0, *, schedule, staleness, minimization, s, inner,
+                outer, rtol, atol, maxiter, min_convergence_count,
+                record_history, rnorm0, basis_collection, stage):
+    """``multisplit_solve``: its checks and its loop, each stage of which
+    runs inside ``stage(name, on)``.  The stages are the reference's
+    PetscLog stages: 'I_Solver' (a sweep: the inner solves and the basis
+    column), 'Exchange' (publish and the coupling right-hand side),
+    'O_Solver' (the minimization) and 'Convergence' (a cycle's norms and
+    test; the async certification tail); ``on`` is ``b`` for the first and
+    third, None for the others.  The entry's norm and first host read are
+    no stage: a plain ``multisplit.Convergence`` span."""
     if schedule not in ("sync", "async"):
         raise ValueError(f"unknown schedule {schedule!r}")
     if minimization not in (None, "local", "semi_local", "global"):
@@ -728,7 +710,7 @@ def multisplit_solve(
             # a graphed inner solve reads x and the exchange's rhs from its
             # own buffers: the loop writes them in place
             x = x_buf.copy_(x0)
-        with span("multisplit.Exchange"):
+        with stage("Exchange", None):
             rhs = torch.sub(b, op.coupling_mv(x_vis), out=rhs_buf)
         sweeps = cycles = 0
         inner_total = torch.zeros((), dtype=torch.int64, device=dev)
@@ -742,7 +724,7 @@ def multisplit_solve(
                           device=dev)
         while not converged and sweeps < maxiter:
             for i in range(spc):
-                with span("multisplit.I_Solver", b):
+                with stage("I_Solver", b):
                     if i == 0:
                         # the cycle's basis, and which blocks published
                         if minimization is not None:
@@ -768,20 +750,20 @@ def multisplit_solve(
                                 pub_counts[blk] += 1
                     elif minimization is not None:
                         S[i] = x
-                with span("multisplit.Exchange"):
+                with stage("Exchange", None):
                     x_vis = _publish(stal, x, x_vis, sweeps,
                                      overwritten=x is x_buf)
                     rhs = torch.sub(b, op.coupling_mv(x_vis), out=rhs_buf)
             if minimization is not None:
-                with span("multisplit.O_Solver", b):
+                with stage("O_Solver", b):
                     x, outer_rnorm, reads = _minimize(
                         op, b, S, rhs, minimization, outer, outer_pb)
                     syncs += reads
-                with span("multisplit.Exchange"):
+                with stage("Exchange", None):
                     x_vis = _publish(stal, x, x_vis, sweeps)
                     rhs = torch.sub(b, op.coupling_mv(x_vis), out=rhs_buf)
 
-            with span("multisplit.Convergence"):
+            with stage("Convergence", None):
                 # local residual rows r_i = rhs - A_ii x_i: with a sync
                 # exchange the true global residual rows (the reference's
                 # MatResidual test)
@@ -810,7 +792,7 @@ def multisplit_solve(
 
         certified = tail_sweeps = None
         if is_async:
-            with span("multisplit.Convergence"), \
+            with stage("Convergence", None), \
                     span("multisplit.Certify", b):
                 x, tail_sweeps, certified, rn_t, lr_t, reads = \
                     _certification_tail(op, b, x, inner_solve, tol_local,

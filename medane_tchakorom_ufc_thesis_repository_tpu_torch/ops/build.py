@@ -28,9 +28,12 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
+
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -251,7 +254,8 @@ class CountedGraph:
     them; every ``replay`` adds them again, once for each kernel the
     replay launches.  ``graph`` is a ``torch.cuda.CUDAGraph`` (anything
     with ``replay()``), ``context`` a function returning the context
-    manager that captures into it (``torch.cuda.graph(graph, ...)``)."""
+    manager that captures into it (``GraphRunner._new_graph`` makes
+    both)."""
 
     def __init__(self, graph, context):
         self.graph, self.context = graph, context
@@ -274,6 +278,77 @@ class CountedGraph:
         self.graph.replay()
         with _count_lock:
             launches.update(self.launches)
+
+
+def _graphs_on(device) -> bool:
+    """Whether steps on ``device`` replay CUDA graphs: on a card."""
+    return torch.device(device).type == "cuda"
+
+
+class GraphRunner:
+    """``runner(name, step)``: the named steps of one owner, each a
+    function of the owner's static buffers that reads nothing on the host,
+    run eagerly on the CPU and as a CUDA graph each on the card.
+
+    On the card a step's first call runs it eagerly on the caller's
+    stream, as the warm-up, and does that call's work (a side stream would
+    hold a cuBLAS workspace of its own, 32 MiB on the H100, at the step's
+    peak).  Its second call captures it (``CountedGraph``: every replay
+    counts its kernels' launches) into the runner's one memory pool and
+    replays it, as does every call after.  The capture's stream takes a
+    cuBLAS workspace of its own, so the workspaces other streams hold are
+    freed first; a stream whose workspace went takes a new one at its next
+    cuBLAS call.  So a graphed step holds no more memory than an eager one.
+
+    Spans: ``<prefix>.replay`` around each replay and each eager call on
+    the CPU, device-timed on ``on``; ``<prefix>.capture`` around each
+    capture, whose seconds ``capture_s`` sums."""
+
+    def __init__(self, prefix: str, on: torch.Tensor):
+        self.replay_span = prefix + ".replay"
+        self.capture_span = prefix + ".capture"
+        self.on = on
+        self.graphs: dict = {}
+        self.warm: set = set()
+        self.pool = None
+        self.capture_s = 0.0
+
+    def __call__(self, name: str, step) -> None:
+        g = self.graphs.get(name)
+        if g is None and name in self.warm:
+            with span(self.capture_span):
+                t0 = time.perf_counter()
+                g = CountedGraph(*self._new_graph(step))
+                g.capture(step)
+                self.graphs[name] = g
+                self.capture_s += time.perf_counter() - t0
+        if g is not None:
+            with span(self.replay_span, self.on):
+                g.replay()
+        elif _graphs_on(self.on.device):
+            step()                               # the warm-up
+            self.warm.add(name)
+        else:
+            with span(self.replay_span, self.on):
+                step()
+
+    def _new_graph(self, step):
+        """``(graph, context)``, ``CountedGraph``'s arguments: a new CUDA
+        graph and the function returning the context that captures into
+        it.  ``step`` is what the capture will hold."""
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        graph, pool = torch.cuda.CUDAGraph(), self.pool
+
+        # refers to no ``self``: no cycle keeps an owner's buffers alive
+        # until the garbage collector runs
+        def context():
+            clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+            if clear is not None:
+                clear()
+            return torch.cuda.graph(graph, pool=pool)
+
+        return graph, context
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

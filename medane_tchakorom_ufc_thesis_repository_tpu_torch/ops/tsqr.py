@@ -10,9 +10,8 @@ to XLA; on the card it takes the place of ``torch.linalg.qr`` + ``Q^T t`` +
 ``R`` is ``(rows, s)`` or ``(batch, rows, s)`` with any strides (the
 minimization's ``Rcols.reshape(s, n).T`` is read in place, column by
 column), ``t`` ``(rows,)`` or ``(batch, rows)``; f32 or f64, every
-operation in that type.  The answer applies ``lstsq_qr``'s rank rule: where
-``|r_jj| <= eps * max_i |r_ii|``, ``r_jj`` becomes ``r_jj + 1`` and ``y_j``
-becomes 0 before the back-substitution.
+operation in that type.  The answer applies the rank rule of
+``apply_rank_rule``, the port's one copy of it.
 
 The wrapper takes its plain version, the same two-level tree in PyTorch
 (a QR of each row block, then a fixed pairwise tree of QRs of stacked
@@ -64,9 +63,14 @@ def takes(R: torch.Tensor, t: torch.Tensor) -> bool:
     return True
 
 
-def _apply_rank_rule(r: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``lstsq_qr``'s rule on the triangle ``r`` and ``y = Q^T t``, then the
-    back-substitution."""
+def apply_rank_rule(r: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``argmin_a ||t - R a||`` from the triangle ``r`` of a QR of ``R``
+    and ``y = Q^T t`` (each with any leading batch axes): the rank rule,
+    where ``|r_jj| <= eps * max_i |r_ii|`` ``r_jj`` becomes ``r_jj + 1``
+    and ``y_j`` becomes 0, then the back-substitution.  The other entries
+    of that row of ``r`` stay, so ``a_j`` is not set to 0.  Every direct
+    least squares of the port ends here (``solvers/lstsq.lstsq_qr``,
+    ``tsqr_lstsq_plain``, CA-GMRES's cycle)."""
     diag = torch.diagonal(r, dim1=-2, dim2=-1).abs()
     safe = diag > torch.finfo(r.dtype).eps * diag.amax(-1, keepdim=True)
     r = r + torch.diag_embed((~safe).to(r.dtype))
@@ -90,7 +94,7 @@ def tsqr_lstsq_plain(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         tri = [torch.linalg.qr(torch.cat(tri[i:i + 2], dim=-2), mode="r")[1]
                if i + 1 < len(tri) else tri[i] for i in range(0, len(tri), 2)]
     f = tri[0]
-    return _apply_rank_rule(f[..., :s, :s], f[..., :s, s])
+    return apply_rank_rule(f[..., :s, :s], f[..., :s, s])
 
 
 def tsqr_lstsq(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

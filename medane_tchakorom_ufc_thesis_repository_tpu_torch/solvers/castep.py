@@ -18,6 +18,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops.tsqr import apply_rank_rule
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers.krylov import (
     KrylovResult,
     _sharded_b,
@@ -189,12 +190,7 @@ def ca_gmres(
             y, _ = chol_solve(G, psum(gvec(C, r)))
         else:
             q, rr = torch.linalg.qr(C.T, mode="reduced")     # (n,s),(s,s)
-            diag = torch.diagonal(rr)
-            safe = diag.abs() > eps * diag.abs().max()
-            rr = rr + torch.diag((~safe).to(dtype))
-            qtr = torch.where(safe, full_matmul(q.T, r), 0.0)
-            y = torch.linalg.solve_triangular(rr, qtr[:, None],
-                                              upper=True)[:, 0]
+            y = apply_rank_rule(rr, full_matmul(q.T, r))
         x_new = x + comb(y, K[..., :s, :])
         res = r - comb(y, C)
         rnorm_new = torch.sqrt(pnorm2(res))

@@ -56,17 +56,10 @@ def lstsq_normal(R: torch.Tensor, rhs: torch.Tensor,
 
 
 def lstsq_qr(R: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """argmin_a ||rhs - R a|| via reduced QR.  The rank rule: where a
-    diagonal entry of ``r`` falls under ``eps * max|diag|``, ``r_jj``
-    becomes ``r_jj + 1`` and ``y_j = (Q^T rhs)_j`` becomes 0 before the
-    back-substitution (as the JAX package's ``lstsq_qr``); the other
-    entries of that row of ``r`` stay, so ``a_j`` is not set to 0."""
+    """argmin_a ||rhs - R a|| via reduced QR and the rank rule
+    (``ops/tsqr.apply_rank_rule``, as the JAX package's ``lstsq_qr``)."""
     if tsqr.takes(R, rhs) and build.on_cuda(R):
         return tsqr.tsqr_lstsq(R, rhs)
     q, r = torch.linalg.qr(R, mode="reduced")
-    diag = torch.diagonal(r, dim1=-2, dim2=-1).abs()
-    safe = diag > torch.finfo(R.dtype).eps * diag.amax(-1, keepdim=True)
-    r = r + torch.diag_embed((~safe).to(R.dtype))
-    y = full_matmul(q.transpose(-2, -1), rhs[..., None])[..., 0]
-    return torch.linalg.solve_triangular(
-        r, torch.where(safe, y, 0.0)[..., None], upper=True)[..., 0]
+    return tsqr.apply_rank_rule(
+        r, full_matmul(q.transpose(-2, -1), rhs[..., None])[..., 0])

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import time
 import types
 from typing import Callable, List
 
@@ -166,10 +165,10 @@ class _FusedProgram:
     iteration); the work between two reads runs as one replay of a CUDA
     graph: one graph of a PCG iteration (W-cycle, matvec, dots, updates,
     the next loop test) and one of the pass tail (df update, df residual,
-    scaled norm, pass test, the next pass's CG start).  Each graph is
-    captured after its first call, which runs eagerly, on a side stream,
-    as its warm-up and does that call's work; a failed capture raises.
-    On a CPU tensor the same step functions run eagerly.
+    scaled norm, pass test, the next pass's CG start), both run by one
+    ``build.GraphRunner`` (``steps``: spans ``refine.replay`` and
+    ``refine.capture``, one memory pool); a failed capture raises.  On a
+    CPU tensor the same step functions run eagerly.
 
     Updated in place: the CG state (x, r, p written with ``out=``, the
     scalars copied), and xhi, xlo (the df update's result copied in)."""
@@ -183,10 +182,7 @@ class _FusedProgram:
         self.Md = mg_preconditioner(op, nu=nu, min_size=min_size,
                                     coarse_iters=coarse_iters, cycle=cycle,
                                     return_rdot=True)
-        self.st = None
-        self.graphs = {}
-        self.pool = None
-        self.capture_s = 0.0     # seconds spent capturing, warm-ups apart
+        self.st = self.steps = None
 
     def _state(self, bhi: torch.Tensor):
         """The static buffers for a right-hand side like ``bhi``, made at
@@ -206,7 +202,7 @@ class _FusedProgram:
                          rz=scalar[1]),
             rn0=scalar[2], tol=scalar[3], rnorm=scalar[4], rnorm0=scalar[5],
             tol_pass=scalar[6], live=flag[0], first=flag[1], go=flag[2])
-        self.graphs = {}
+        self.steps = build.GraphRunner("refine", st.bhi)
         return st
 
     def _cg_start(self, rhi: torch.Tensor) -> None:
@@ -248,37 +244,6 @@ class _FusedProgram:
         st.go.copy_(st.rnorm > st.tol_pass)
         self._cg_start(rhi)
 
-    def _run(self, name: str, step) -> None:
-        """``step()``: eagerly on the CPU; on the card a replay of its
-        graph, captured after the first call (spans ``refine.replay`` and
-        ``refine.capture``)."""
-        if self.st.bhi.device.type != "cuda":
-            with span("refine.replay"):
-                step()
-            return
-        g = self.graphs.get(name)
-        if g is not None:
-            with span("refine.replay", self.st.bhi):
-                g.replay()
-            return
-        with span("refine.capture"):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                step()                      # warm-up: this call's own work
-            torch.cuda.current_stream().wait_stream(side)
-            t0 = time.perf_counter()
-            if self.pool is None:
-                self.pool = torch.cuda.graph_pool_handle()
-            graph, pool = torch.cuda.CUDAGraph(), self.pool
-            # the context refers to no ``self``: no cycle keeps a cleared
-            # program's buffers alive until the garbage collector runs
-            g = build.CountedGraph(graph,
-                                   lambda: torch.cuda.graph(graph, pool=pool))
-            g.capture(step)
-            self.graphs[name] = g
-            self.capture_s += time.perf_counter() - t0
-
     def __call__(self, bhi: torch.Tensor, blo: torch.Tensor):
         """Solve for ``b = bhi + blo``; returns ``(xhi, xlo, passes,
         pcg_iters, rnorm, rnorm0, syncs)``."""
@@ -309,10 +274,10 @@ class _FusedProgram:
                         live = bool(st.live)
                     if not live:
                         break
-                    self._run("iteration", self._iteration)
+                    self.steps("iteration", self._iteration)
                     trips += 1
                 pcg_iters.append(trips)
-                self._run("tail", self._tail)
+                self.steps("tail", self._tail)
                 passes += 1
         syncs += 1
         with span("refine.sync"):

@@ -1,12 +1,14 @@
 """The multisplitting inner solve as a CUDA graph
-(``models/multisplitting._InnerGraph``).
+(``models/multisplitting._InnerGraph``), and the one graph runner
+(``ops/build.GraphRunner``) it shares with the refinement program.
 
 CPU tests: which inner configs and devices replay a graph (``_graphed``),
-and the graph runner in the drivers with a stand-in graph whose
-``replay()`` re-runs the captured step (``ops/build.CountedGraph`` takes
-anything with ``replay()``): the same sweeps, inner iterations and bits of
-``x`` as the eager solve, one capture, one replay an inner solve but the
-warm-up, and a published iterate that the next replay leaves as it was.
+and the runner in the drivers with a stand-in graph whose ``replay()``
+re-runs the captured step (``ops/build.CountedGraph`` takes anything with
+``replay()``): the same sweeps, inner iterations and bits of ``x`` as the
+eager solve, one capture, one replay an inner solve but the warm-up, and
+a published iterate that the next replay leaves as it was; the same for
+both owners of the runner.
 
 Card tests (marker ``card``; they skip without a card, and run there with
 ``python -m pytest --noconftest -p no:cacheprovider -m card
@@ -29,6 +31,7 @@ from medane_tchakorom_ufc_thesis_repository_tpu_torch.models.staged import (
     staged_multisplit_solve,
 )
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import build
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.solvers import refine
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.utils import profiling
 
 # one intra-op thread a process: the suite runs in several worker
@@ -70,32 +73,38 @@ def test_which_inner_solves_are_graphed(cfg, device, want):
 # ---------------------------------------------------------------------------
 
 class Rerun:
-    """A stand-in CUDA graph: ``replay()`` runs the captured step again."""
+    """A stand-in CUDA graph.  Its capture (a null context) runs the
+    step, which is then that call's work, so the replay right after the
+    capture does nothing; every later ``replay()`` runs the step again."""
 
     def __init__(self, step):
-        self.step = step
+        self.step, self.fresh = step, True
 
     def replay(self):
-        self.step()
+        if self.fresh:
+            self.fresh = False
+        else:
+            self.step()
 
 
 @pytest.fixture()
 def stand_in(monkeypatch):
-    """The runner on the CPU, each capture a ``Rerun``; yields the list
-    of the graphs made."""
+    """The graph runner (``ops/build.GraphRunner``) on the CPU, each
+    capture a ``Rerun``; yields the list of the graphs made."""
     made = []
 
-    def new_graph(step):
+    def new_graph(runner, step):
         made.append(Rerun(step))
         return made[-1], contextlib.nullcontext
 
-    real = ms._graphed
-    monkeypatch.setattr(ms, "_graphed", lambda cfg, device: real(cfg, "cuda"))
-    monkeypatch.setattr(ms, "_new_graph", new_graph)
+    monkeypatch.setattr(build, "_graphs_on", lambda device: True)
+    monkeypatch.setattr(build.GraphRunner, "_new_graph", new_graph)
     ms._inner_graph.cache_clear()
+    refine._df_fused_program.cache_clear()
     profiling.reset()
     yield made
     ms._inner_graph.cache_clear()
+    refine._df_fused_program.cache_clear()
     profiling.reset()
 
 
@@ -144,6 +153,42 @@ def test_graphed_solve_equals_eager(name, stand_in, monkeypatch):
     got = profiling.totals()
     assert got["multisplit.capture"][0] == 1
     assert got["multisplit.replay"][0] == 2 * eager.sweeps - 1
+
+
+# (solve, span prefix, graphs, step calls a solve)
+OWNERS = {
+    "refine_16": (lambda: port.df_northstar_fused(
+        port.poisson3d(16, 16, 16), rtol=1e-8, device="cpu"), "refine", 2,
+        lambda r: sum(r.pcg_iters) + r.passes),
+    "am_32": (lambda: port.am(*_op_b(), staleness=2, rtol=1e-3),
+              "multisplit", 1, lambda r: r.sweeps),
+}
+
+
+def _bits(r):
+    return r.x if isinstance(r.x, tuple) else (r.x,)
+
+
+@pytest.mark.parametrize("name", sorted(OWNERS))
+def test_one_runner_for_both_owners(name, stand_in, monkeypatch):
+    """The refinement program's two steps and the inner sweep run through
+    one runner: one capture a graph, the warm-up call's answer its own,
+    every later call a replay, all bit-equal to the eager solve."""
+    solve, prefix, graphs, steps = OWNERS[name]
+    with monkeypatch.context() as m:
+        m.setattr(build, "_graphs_on", lambda device: False)
+        eager = solve()
+    with profiling.recording():
+        first = solve()             # warm-ups, captures and replays
+        again = solve()             # replays alone
+    for got in (first, again):
+        assert steps(got) == steps(eager) and got.converged
+        assert all(torch.equal(g, e) for g, e in zip(_bits(got),
+                                                     _bits(eager)))
+    assert len(stand_in) == graphs
+    got = profiling.totals()
+    assert got[prefix + ".capture"][0] == graphs
+    assert got[prefix + ".replay"][0] == 2 * steps(eager) - graphs
 
 
 def test_published_iterate_survives_the_next_replay(stand_in):
