@@ -47,7 +47,12 @@ from this checkout and nothing of JAX, and:
    wide ones, in f32 and f64, against the float64 least-squares residual
    and its plain version, two launches bit-equal, timed beside the library
    composition it replaces (``torch.linalg.qr`` + Q^T t +
-   ``solve_triangular``); kernel H (the CSR product) on a structureless square
+   ``solve_triangular``); kernel O (GMRES's Givens step) over whole
+   cycles at the AM and SMSM cells' inner state (2 systems, m 20) and at
+   m 30, in f32 and f64, with a zero column, a happy breakdown and a
+   system out of iterations, bit for bit its plain version and its column
+   only read, timed a step beside the plain step and a one-launch floor;
+   kernel H (the CSR product) on a structureless square
    pattern, n = 2^22 with 10 draws a row, and on a rectangular
    200,003 x 150,001 pattern with empty rows and one row of 50,000
    entries, forward and transpose, and on one row of 20,000 entries
@@ -259,6 +264,8 @@ BSR_REF = "medane_tchakorom_ufc_thesis_repository_tpu/ops/bsr_pallas.py"
 CHEB_REF = "medane_tchakorom_ufc_thesis_repository_tpu/solvers/chebyshev.py:81"
 # nor does kernel N: the JAX lstsq_qr leaves the QR to XLA
 LSTSQ_REF = "medane_tchakorom_ufc_thesis_repository_tpu/solvers/lstsq.py:46"
+# nor does kernel O: XLA fuses the JAX gmres body's Givens work
+GIVENS_REF = "medane_tchakorom_ufc_thesis_repository_tpu/solvers/krylov.py:217"
 
 # kernel entries: (name, source, replaced TPU kernel, dtypes timed, the
 # path whose counted runs give its launches)
@@ -288,6 +295,7 @@ ENTRIES = [
     ("mdot", "mdot.cu", f"{FUSED}:408", ("f32", "f32"), "thesis"),
     ("maxpy", "mdot.cu", f"{FUSED}:439", ("f32", "f32"), "thesis"),
     ("tsqr", "tsqr.cu", LSTSQ_REF, ("f32", "f32"), "thesis"),
+    ("givens_step", "givens.cu", GIVENS_REF, ("f32", "f32"), "thesis"),
     ("csr_mv", "csr_mv.cu", f"{AIJ_REF}:307", ("f32", "f32"), "api"),
     ("bsr_mv", "bsr_mv.cu", f"{BSR_REF}:51", ("f32", "f32"), "api"),
     ("stencil3d_axpy_mv_dot", "stencil3d.cu", f"{REF}:721", ("f32", "f32"),
@@ -355,6 +363,9 @@ FG_SHAPES = [(2, 21, 8_388_608), (3, 7, 1_000_003)]
 # minimization (2 strips of 2048 x 4096, s = 4), timed
 N_SHAPES = [(1, 16_777_216, 4), (2, 1_000_003, 8), (1, 100_003, 30),
             (2, 65_537, 12), (1, 257, 30)]
+# kernel O: (systems, steps a cycle); the first is the inner GMRES(20) of
+# the AM and SMSM cells' two blocks, timed
+O_SHAPES = [(2, 20), (3, 30)]
 GOLDEN = (("SM", 42), ("AM", 88), ("SMSM_LOCAL", 36),
           ("SMSM_SEMI_LOCAL", 12), ("SMSM_GLOBAL", 12))
 OMEGA = (6.0 / 7.0) / DIAG
@@ -1101,6 +1112,7 @@ def kernel_phase_2d(torch, dev) -> dict:
         log(f"kernels F, G: {shape} ok")
     torch.cuda.empty_cache()
     kernel_n(torch, dev, timed, note)
+    kernel_o(torch, dev, report, note)
     return report
 
 
@@ -1199,6 +1211,124 @@ def kernel_n(torch, dev, timed, note) -> None:
             del R, t, a, again, plain, R64, t64, best
             torch.cuda.empty_cache()
     log("kernel N: ok")
+
+
+def givens_cycle(torch, dev, nsys, m, dtype, seed):
+    """One GMRES cycle's inputs for kernel O as ``krylov.gmres`` hands them
+    over, ``[(hcol, happy)]`` a step, and the state it starts from.  Each
+    case freezes its system: system 0 meets a happy breakdown at step
+    m // 2, system 1 runs out of iterations at step 3 m // 4, and system 2
+    (of three or more) has a zero column at step 1 (no rotation to form,
+    and a happy breakdown)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    maxiter, eps = 1000, torch.finfo(dtype).eps
+    cols = []
+    for j in range(m):
+        h = torch.zeros((nsys, m + 1), device=dev, dtype=torch.float64)
+        h[:, :j + 1] = torch.randn((nsys, j + 1), generator=gen, device=dev,
+                                   dtype=torch.float64)
+        h[:, j + 1] = torch.randn(nsys, generator=gen, device=dev,
+                                  dtype=torch.float64).abs() + 0.1
+        if j == m // 2:
+            h[0, j + 1] = 1e-30
+        if j == 1 and nsys > 2:
+            h[2, :j + 2] = 0.0
+        hcol = h.to(dtype)
+        cols.append((hcol, hcol[:, j + 1] <= eps * torch.linalg.vector_norm(
+            hcol, dim=-1)))
+    beta = torch.rand(nsys, generator=gen, device=dev,
+                      dtype=torch.float64).to(dtype) + 0.5
+    g = torch.zeros((nsys, m + 1), device=dev, dtype=dtype)
+    g[:, 0] = beta
+    iters = torch.zeros(nsys, device=dev, dtype=torch.int32)
+    iters[1] = maxiter - (3 * m) // 4
+    state = dict(H=torch.zeros((nsys, m + 1, m), device=dev, dtype=dtype),
+                 cs=torch.ones((nsys, m), device=dev, dtype=dtype),
+                 sn=torch.zeros((nsys, m), device=dev, dtype=dtype), g=g,
+                 iters=iters, rnorm=beta.clone(),
+                 converged=torch.zeros(nsys, device=dev, dtype=torch.bool),
+                 active=torch.empty(nsys, device=dev, dtype=torch.bool))
+    tol = torch.full((nsys,), 1e-30, device=dev, dtype=dtype)
+    return cols, state, tol, maxiter
+
+
+def kernel_o(torch, dev, report, note) -> None:
+    """Kernel O against its plain version over whole cycles, every state
+    tensor bit for bit after every step and ``hcol`` only read; timed a
+    step at the cells' inner state (a cycle's 20 launches, by events and
+    graphed) beside the plain step and the card's one-launch floor (a
+    one-value fill, graphed), which is its bound: latency, not bytes."""
+    from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops import givens
+
+    def as_bits(t):
+        return t.view({torch.float32: torch.int32,
+                       torch.float64: torch.int64}.get(t.dtype, t.dtype))
+
+    for i, (nsys, m) in enumerate(O_SHAPES):
+        for dtype in (torch.float32, torch.float64):
+            what = f"givens_step {dtype} ({nsys} systems, m {m})"
+            cols, start, tol, maxiter = givens_cycle(torch, dev, nsys, m,
+                                                     dtype, 30 + i)
+            got = {k: v.clone() for k, v in start.items()}
+            want = {k: v.clone() for k, v in start.items()}
+            for j, (hcol, happy) in enumerate(cols):
+                before = hcol.clone()
+                givens.givens_step(hcol, happy, tol, maxiter, j, **got)
+                givens.givens_step_plain(hcol, happy, tol, maxiter, j, **want)
+                torch.cuda.synchronize()
+                if not torch.equal(as_bits(hcol), as_bits(before)):
+                    raise AssertionError(f"{what}: step {j} wrote hcol")
+                for k in want:
+                    if not torch.equal(as_bits(got[k]), as_bits(want[k])):
+                        raise AssertionError(
+                            f"{what}: step {j}, {k}: kernel {got[k]} "
+                            f"against plain {want[k]}")
+                    if got[k].is_floating_point():
+                        note("givens_step", float(
+                            (got[k].double() - want[k].double()).abs().max()))
+            reached = (bool(got["converged"][0]) and not got["converged"][1]
+                       and int(got["iters"][1]) == maxiter)
+            if nsys > 2:
+                reached &= (bool(got["converged"][2])
+                            and float(got["cs"][2, 1]) == 1.0
+                            and int(got["iters"][2]) == 2)
+            if not reached:
+                raise AssertionError(f"{what}: the cycle missed its cases: "
+                                     f"{got}")
+            if i:
+                log(f"{what}: bit-equal over the cycle")
+                continue
+
+            def cycle(step, state):
+                def run():
+                    for j, (hcol, happy) in enumerate(cols):
+                        step(hcol, happy, tol, maxiter, j, **state)
+                return run
+
+            kernel = cycle(givens.givens_step, got)
+            plain = cycle(givens.givens_step_plain, want)
+            ms, plain_ms = median_ms(torch, kernel) / m, median_ms(torch,
+                                                                    plain) / m
+            device = graph_ms(torch, kernel) / m
+            plain_device = graph_ms(torch, plain) / m
+            one = torch.zeros(1, device=dev, dtype=dtype)
+            floor = graph_ms(torch, one.zero_, reps=m)
+            state_bytes = sum(nbytes(t) for t in start.values()) + nbytes(
+                tol, *cols[-1])
+            by_bytes = bound(state_bytes, 6 * nsys * m)["bound_ms"]
+            if dtype == torch.float32:
+                report["givens_step"].update(
+                    ms=ms, plain_ms=plain_ms, bound_ms=floor,
+                    bound_by="latency")
+            log(f"{what}: bit-equal over the cycle; a step: kernel "
+                f"{ms:.5f} ms (device {device:.5f} ms, {floor / device:.0%} "
+                f"of its bound), plain {plain_ms:.4f} ms (device "
+                f"{plain_device:.4f} ms), bound {floor:.5f} ms (latency: a "
+                f"one-value fill, graphed; the state's bytes {by_bytes:.2e} "
+                f"ms)")
+            del cols, start, got, want
+    log("kernel O: ok")
 
 
 # ---------------------------------------------------------------------------
@@ -2207,11 +2337,11 @@ def thesis_phase(torch, port, dev) -> dict:
          lambda op, b: port.smsm(op, b, scope="global", s=4, rtol=1e-3,
                                  maxiter=2000), 1e-3,
          ("stencil2d_apply[mv]", "stencil2d_apply[spmm]", "mdot", "maxpy",
-          "tsqr"),
+          "tsqr", "givens_step"),
          "TPU v5e: 52 sweeps with a bf16 basis (BENCHMARKS.md:28)"),
         ("AM 1024^2 staleness 2", lambda: port.block_poisson2d(1024, 1024),
          lambda op, b: port.am(op, b, staleness=2, rtol=1e-3, maxiter=4000),
-         1e-3, ("stencil2d_apply[mv]", "mdot", "maxpy"),
+         1e-3, ("stencil2d_apply[mv]", "mdot", "maxpy", "givens_step"),
          "TPU v5e: 282 sweeps (BENCHMARKS.md:70)"),
         ("SMSM_GLOBAL 3D 64^3 Chebyshev(20)",
          lambda: port.block_poisson3d(64, 64, 64),

@@ -48,7 +48,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # bit for bit
 EXTRA_FLAGS = {"stencil3d": (), "df_residual": ("-fmad=false",),
                "stencil2d": ("-fmad=false",), "mdot": (), "csr_mv": (),
-               "bsr_mv": (), "tsqr": ()}
+               "bsr_mv": (), "tsqr": (), "givens": ()}
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _D = ctypes.c_double
@@ -113,6 +113,10 @@ SIGNATURES = {
         "tsqr_partials_count": ([_I, _I64, _I64, _I], _I64),
         "tsqr_lstsq": ([_I, _P, _P, _P, _P, _I64, _I64, _I] + [_I64] * 5 + [_P],
                        _I),
+    },
+    "givens": {
+        "kernel_error_string": ([_I], ctypes.c_char_p),
+        "givens_step": ([_I] + [_P] * 11 + [_I64] * 4 + [_P], _I),
     },
 }
 

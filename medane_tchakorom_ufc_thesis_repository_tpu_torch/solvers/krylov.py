@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops.fused import maxpy, mdot
+from medane_tchakorom_ufc_thesis_repository_tpu_torch.ops.givens import givens_step
 from medane_tchakorom_ufc_thesis_repository_tpu_torch.utils.profiling import span
 
 
@@ -494,7 +495,9 @@ def gmres(
     ``orthog``: ``"cgs"`` one classical Gram-Schmidt pass, ``"cgs2"`` two.
     Each projection ``h = V w`` is kernel F (``ops.fused.mdot``), each
     update ``w - V^T h`` and the solution update ``x + V[:m]^T y`` kernel G
-    (``ops.fused.maxpy``).  ``basis_dtype`` stores the basis narrower
+    (``ops.fused.maxpy``).  Each step's Givens work on the small state
+    (the rotations, ``g`` and the masked commits) is kernel O
+    (``ops.givens.givens_step``).  ``basis_dtype`` stores the basis narrower
     (``torch.bfloat16``); its dots and every recurrence stay in ``b``'s
     dtype.  ``rnorm0`` pins the test's reference norm (default
     ``||b - A x0||`` per system); convergence is ``||r|| <= max(rtol *
@@ -569,8 +572,11 @@ def gmres(
         sn = torch.zeros((nsys, m), dtype=dtype, device=dev)
         g = torch.zeros((nsys, m + 1), dtype=dtype, device=dev)
         g[:, 0] = beta
+        # the Givens step updates these in place: the cycle's own copies
+        # (the caller keeps the old state for systems that sit it out)
+        iters, rnorm, converged = iters.clone(), rnorm.clone(), converged.clone()
+        active = torch.empty(nsys, dtype=torch.bool, device=dev)
         for j in range(m):
-            active = ~converged & (iters < maxiter)
             w = matvec(Vs[j].to(dtype))
             # classical Gram-Schmidt against the j+1 live rows
             h = psum(mdot(V, w, j + 1))
@@ -587,37 +593,14 @@ def gmres(
             hcol[:, j + 1] = hj1
             # happy breakdown: against ||A v_j|| = ||hcol||, not beta
             happy = hj1 <= eps * _norms(hcol)
-            # the accumulated rotations; slots >= j are the identity
-            for i in range(j):
-                hi, hi1 = hcol[:, i], hcol[:, i + 1]
-                t1 = cs[:, i] * hi + sn[:, i] * hi1
-                t2 = -sn[:, i] * hi + cs[:, i] * hi1
-                hcol[:, i] = t1
-                hcol[:, i + 1] = t2
-            # the new rotation, annihilating hcol[j+1]
-            a_, b_ = hcol[:, j], hcol[:, j + 1]
-            denom = torch.sqrt(a_ * a_ + b_ * b_)
-            pos = denom > 0
-            safe = torch.where(pos, denom, 1.0)
-            c_new = torch.where(pos, a_ / safe, 1.0)
-            s_new = torch.where(pos, b_ / safe, 0.0)
-            hcol[:, j] = denom
-            hcol[:, j + 1] = 0.0
-            gj = g[:, j]
-            g_new = g.clone()
-            g_new[:, j] = c_new * gj
-            g_new[:, j + 1] = -s_new * gj
-            rnorm_new = g_new[:, j + 1].abs()
-            # masked commit: a frozen system keeps what it had (row j+1
-            # of the JAX basis and column j of its H start at zero)
+            # the rotations, the new one, g and the masked commits of the
+            # small state (kernel O); active = ~converged & (iters <
+            # maxiter) as the step found them
+            givens_step(hcol, happy, tol, maxiter, j, H, cs, sn, g, iters,
+                        rnorm, converged, active)
+            # a frozen system keeps what it had (row j+1 of the JAX basis
+            # starts at zero)
             Vs[j + 1] = torch.where(active[:, None], vnext, 0.0)
-            H[:, :, j] = torch.where(active[:, None], hcol, 0.0)
-            cs[:, j] = torch.where(active, c_new, 1.0)
-            sn[:, j] = torch.where(active, s_new, 0.0)
-            g = torch.where(active[:, None], g_new, g)
-            iters = torch.where(active, iters + 1, iters)
-            rnorm = torch.where(active, rnorm_new, rnorm)
-            converged = converged | (active & ((rnorm_new <= tol) | happy))
         # back substitution on the rotated, upper-triangular H; untaken
         # columns (zero diagonal) become the identity with y = 0 there
         R = H[:, :m, :]
